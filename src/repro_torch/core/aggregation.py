@@ -1,0 +1,175 @@
+"""Update semantics for OLAF opportunistic aggregation.
+
+An *update* is one asynchronous DRL model update (paper: one UDP packet):
+a flattened gradient payload tagged with ``(cluster_id, worker_id)``, the
+generation timestamp (for Age-of-Model), and the episode mean reward used
+for convergence-preserving gating (paper §3).
+
+Combining rules (paper §3 "Opportunistic Update Aggregation"):
+  * same cluster, rewards within ``reward_threshold``  -> AGGREGATE (average)
+  * incoming reward higher by more than the threshold  -> REPLACE
+  * incoming reward lower by more than the threshold   -> DROP
+  * same worker and the waiting update is un-aggregated -> REPLACE
+    (the newer update subsumes the older one's experience; Alg. 1 lines 9-13)
+
+``reward_threshold=None`` disables gating (pure Algorithm 1 behaviour).
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional
+
+import numpy as np
+
+
+class Action(enum.Enum):
+    AGGREGATE = "aggregate"
+    REPLACE = "replace"
+    DROP = "drop"
+    APPEND = "append"
+
+
+@dataclasses.dataclass
+class Update:
+    """One asynchronous model update in flight."""
+
+    cluster_id: int
+    worker_id: int
+    gen_time: float  # when the worker generated it (virtual seconds)
+    reward: float  # episode mean reward r_i carried in the packet
+    payload: Optional[np.ndarray] = None  # flattened gradient (None = metadata-only sim)
+    agg_count: int = 1  # how many raw updates were *aggregated* into this one (Fig. 6 CDF)
+    subsumed: int = 1  # raw updates whose information this one carries
+    #   (aggregated + replaced-away); used for loss accounting (Tab. 1)
+    size_bits: int = 2048  # wire size (paper microbench: 2048-bit packets)
+    seq: int = -1  # departure-order sequence number (queue internal)
+    replaceable: bool = True  # replace_status flag: un-aggregated, same-worker replace OK
+    retx: int = 0  # 0 = fresh send; k>0 = k-th ACK-timeout retransmission
+    #   of a previously sent update (same gen_time, same payload)
+    uids: Optional[frozenset] = None  # unique ids of the fresh sends whose
+    #   information this packet carries. A retransmitted copy reuses the
+    #   original's uid, so counting distinct delivered uids never exceeds
+    #   the number of fresh sends (the delivery_rate <= 1 invariant).
+    defers: int = 0  # times this update was deferred by the PS staleness
+    #   admission control and re-queued at the egress switch to recombine
+    corrupt: Optional[tuple] = None  # payload-corruption marker
+    #   ``(mode, seed, factor)`` stamped by a CorruptionFault at send time.
+    #   ``None`` = clean. The marker travels with the metadata trace so
+    #   both hybrid consumers can apply the identical byte damage
+    #   (``apply_corruption`` in netsim) without shipping payloads.
+
+    def clone(self) -> "Update":
+        return dataclasses.replace(
+            self, payload=None if self.payload is None else self.payload.copy()
+        )
+
+
+def gate(incoming_reward: float, waiting_reward: float,
+         reward_threshold: Optional[float]) -> Action:
+    """Reward-gating decision for two same-cluster updates (paper §3)."""
+    if reward_threshold is None:
+        return Action.AGGREGATE
+    diff = incoming_reward - waiting_reward
+    if abs(diff) <= reward_threshold:
+        return Action.AGGREGATE
+    if diff > reward_threshold:
+        return Action.REPLACE
+    return Action.DROP
+
+
+def aggregate(waiting: Update, incoming: Update) -> Update:
+    """Merge ``incoming`` into ``waiting`` in place of the waiting update.
+
+    Gradient payloads are averaged (paper: ``g_a = avg(g_a, g_i)``); the
+    merged update inherits the *queue position* (seq) of the waiting update
+    and the *freshness* (gen_time) of the newer one — an aggregated model
+    subsumes the older experience, so its age is the newer update's age
+    (cf. Fig. 5: aggregation lowers the AoM).
+    """
+    if waiting.payload is not None and incoming.payload is not None:
+        # Weighted mean so that k-fold aggregation equals the mean of the
+        # k raw gradients irrespective of arrival order.
+        w_n, i_n = waiting.agg_count, incoming.agg_count
+        payload = (waiting.payload * w_n + incoming.payload * i_n) / (w_n + i_n)
+    else:
+        payload = incoming.payload if incoming.payload is not None else waiting.payload
+    return dataclasses.replace(
+        incoming,
+        payload=payload,
+        agg_count=waiting.agg_count + incoming.agg_count,
+        subsumed=waiting.subsumed + incoming.subsumed,
+        gen_time=max(waiting.gen_time, incoming.gen_time),
+        reward=max(waiting.reward, incoming.reward),
+        seq=waiting.seq,
+        replaceable=False,  # an aggregation disables same-worker replacement
+        uids=_merge_uids(waiting.uids, incoming.uids),
+        defers=max(waiting.defers, incoming.defers),
+        # averaging a tainted payload taints the merge — either side's
+        # corruption survives (incoming's marker wins for determinism)
+        corrupt=incoming.corrupt if incoming.corrupt is not None
+        else waiting.corrupt,
+    )
+
+
+def replace(waiting: Update, incoming: Update) -> Update:
+    """Newer update takes the waiting update's queue position outright."""
+    out = incoming.clone() if incoming.payload is not None else dataclasses.replace(incoming)
+    out.seq = waiting.seq
+    out.subsumed = waiting.subsumed + incoming.subsumed
+    # the replacing update subsumes the waiting one's information, so its
+    # delivery also covers the waiting update's fresh sends
+    out.uids = _merge_uids(waiting.uids, incoming.uids)
+    out.defers = max(waiting.defers, incoming.defers)
+    # replacement discards the waiting payload bytes entirely, so only the
+    # incoming update's corruption marker (already on ``out``) survives —
+    # a clean replacement *heals* a tainted slot.
+    return out
+
+
+def _merge_uids(a: Optional[frozenset], b: Optional[frozenset]) -> Optional[frozenset]:
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a | b
+
+
+# ---------------------------------------------------------------------------
+# Robust combining (payload-integrity fallback at PS egress)
+# ---------------------------------------------------------------------------
+# When ingress screening flags a large fraction of a drained block, the
+# trainer falls back from the plain weighted mean to a *winsorized*
+# (per-coordinate trimmed) combine: every coordinate is clipped into the
+# [trim, 1-trim] weighted-sample quantile band of the valid rows before
+# averaging, so a single exploding or non-finite row cannot dominate the
+# merged gradient. These numpy versions are the sequential oracle; the
+# device twin used by the standalone PS step comes with that step.
+
+def coordinate_clip(rows: np.ndarray, bound: float) -> np.ndarray:
+    """Clip every coordinate of every row into ``[-bound, bound]``
+    (non-finite coordinates collapse to the nearest bound / zero)."""
+    out = np.nan_to_num(rows, nan=0.0, posinf=bound, neginf=-bound)
+    return np.clip(out, -bound, bound)
+
+
+def trimmed_combine(rows: np.ndarray, weights: np.ndarray,
+                    trim: float = 0.25) -> np.ndarray:
+    """Winsorized weighted mean over the rows with ``weights > 0``.
+
+    Per coordinate, values are clipped into the [trim, 1-trim] quantile
+    band of the *valid* rows, then averaged with the original weights.
+    With no valid rows the combine is all-zero (a skipped PS step).
+    """
+    rows = np.asarray(rows, np.float64)
+    weights = np.asarray(weights, np.float64)
+    valid = weights > 0
+    if not valid.any():
+        return np.zeros(rows.shape[-1], rows.dtype)
+    masked = np.where(valid[:, None], rows, np.nan)
+    lo = np.nanquantile(masked, trim, axis=0)
+    hi = np.nanquantile(masked, 1.0 - trim, axis=0)
+    clipped = np.clip(np.nan_to_num(rows, nan=0.0, posinf=0.0,
+                                    neginf=0.0), lo, hi)
+    wts = weights * valid
+    return (wts[:, None] * clipped).sum(0) / max(wts.sum(), 1.0)

@@ -1,0 +1,210 @@
+"""The fused OLAF data-plane cycle (burst enqueue → drain-k) on the card.
+
+Port of the Pallas TPU kernel ``repro/kernels/olaf_step.py::olaf_step_pallas``
+as a hand-written CUDA kernel for Hopper (``csrc/olaf_step.cu``: a resolve
+launch with one warp per queue, then a column-parallel payload launch; the
+source says why). :func:`olaf_step_cuda` launches it on CUDA tensors and
+counts its launches; :func:`olaf_step_plain` is its plain PyTorch version
+(the composition in ``repro_torch.core.olaf_queue``), which the CPU path and
+the on-card comparison use.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core import olaf_queue
+from repro_torch.core.olaf_queue import TorchQueueState
+
+_SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block gets by default
+
+
+class _Args(ctypes.Structure):
+    """``struct OlafStepArgs`` of ``csrc/olaf_step.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in ("S", "Q", "U", "D", "K")]
+                + [("thr", ctypes.c_float)]
+                + [(n, ctypes.c_void_p) for n in (
+                    "cluster", "worker", "seq", "gen_time", "reward",
+                    "agg_count", "replaceable", "payload", "next_seq",
+                    "n_dropped", "n_agg", "n_repl", "n_screened", "capacity",
+                    "u_cluster", "u_worker", "u_gen_time", "u_reward",
+                    "u_send", "u_screen", "u_payload",
+                    "d_valid", "d_cluster", "d_worker", "d_agg_count",
+                    "d_gen_time", "d_reward", "d_payload", "n_valid",
+                    "slot_base", "slot_off", "slot_upd", "slot_drow")])
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+    lib = _build.load("olaf_step")
+    lib.olaf_step_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.olaf_step_launch.restype = ctypes.c_int
+    lib.olaf_step_error_string.argtypes = [ctypes.c_int]
+    lib.olaf_step_error_string.restype = ctypes.c_char_p
+    for fn in (lib.olaf_step_resolve_smem, lib.olaf_step_payload_smem):
+        fn.restype = ctypes.c_size_t
+    lib.olaf_step_resolve_smem.argtypes = [ctypes.c_int] * 2
+    lib.olaf_step_payload_smem.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+_STATE_DTYPES = dict(cluster=torch.int32, worker=torch.int32,
+                     seq=torch.int32, gen_time=torch.float32,
+                     reward=torch.float32, agg_count=torch.int32,
+                     replaceable=torch.bool, payload=torch.float32,
+                     next_seq=torch.int32, n_dropped=torch.int32,
+                     n_agg=torch.int32, n_repl=torch.int32,
+                     n_screened=torch.int32)
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"olaf_step: {name} is on {t.device}, the queue on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"olaf_step: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"olaf_step: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"olaf_step: {name} must be contiguous")
+
+
+def olaf_step_cuda(state: TorchQueueState, clusters, workers, gen_times,
+                   rewards, payloads, k: int,
+                   reward_threshold: float = math.inf, send=None,
+                   capacity=None, screen=None
+                   ) -> Tuple[TorchQueueState, Dict[str, torch.Tensor]]:
+    """Launch the CUDA ``olaf_step`` kernel: one full cycle for one queue
+    (``payload (Q, D)``) or S queues (a leading S axis on every operand).
+
+    The queue is updated IN PLACE: the returned state holds the passed-in
+    tensors, which ``repro`` donates at this point; treat the argument as
+    consumed. Every state tensor must be contiguous and of
+    ``TorchQueueState``'s dtype, and every tensor operand on the queue's
+    CUDA device (burst operands are cast to their dtype there, never moved;
+    ``capacity`` may be a Python int); the wrapper raises on anything else
+    and on a failed launch. Returns
+    ``(state, out)`` with ``out`` as :func:`olaf_step_plain` gives it.
+    """
+    dev = state.payload.device
+    operands = dict(clusters=clusters, workers=workers, gen_times=gen_times,
+                    rewards=rewards, payloads=payloads, send=send,
+                    capacity=capacity, screen=screen)
+    for n, v in operands.items():  # before any coercion could copy them
+        if isinstance(v, torch.Tensor) and v.device != dev:
+            raise ValueError(f"olaf_step: {n} is on {v.device}, the queue "
+                             f"on {dev}: operands on more than one device")
+    if dev.type != "cuda":
+        raise ValueError(f"olaf_step_cuda needs CUDA tensors, got {dev}")
+    squeeze = state.payload.dim() == 2
+    st = state
+    if squeeze:  # views: the in-place update reaches the caller's tensors
+        st = TorchQueueState(**{n: v.unsqueeze(0)
+                                for n, v in state.fields().items()})
+        clusters, workers, gen_times, rewards, payloads = (
+            x.unsqueeze(0) for x in (clusters, workers, gen_times, rewards,
+                                     payloads))
+        send = None if send is None else send.unsqueeze(0)
+        screen = None if screen is None else screen.unsqueeze(0)
+    S, Q, D = st.payload.shape
+    U = clusters.shape[-1]
+    K = min(int(k), Q)
+    for n, v in st.fields().items():
+        shape = (S, Q, D) if n == "payload" else (
+            (S,) if v.dim() == 1 else (S, Q))
+        _check(n, v, _STATE_DTYPES[n], shape, dev)
+    ints = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    floats = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    bools = lambda x: torch.as_tensor(x, dtype=torch.bool, device=dev)  # noqa: E731
+    burst = dict(
+        u_cluster=ints(clusters).contiguous(),
+        u_worker=ints(workers).contiguous(),
+        u_gen_time=floats(gen_times).contiguous(),
+        u_reward=floats(rewards).contiguous(),
+        u_send=(torch.ones((S, U), dtype=torch.bool, device=dev)
+                if send is None else bools(send).contiguous()),
+        u_screen=(torch.zeros((S, U), dtype=torch.bool, device=dev)
+                  if screen is None else bools(screen).contiguous()),
+        u_payload=floats(payloads).contiguous(),
+    )
+    for n, v in burst.items():
+        _check(n, v, v.dtype, (S, U, D) if n == "u_payload" else (S, U), dev)
+    cap = (torch.full((S,), Q, dtype=torch.int32, device=dev) if capacity is None
+           else ints(capacity).expand(S).contiguous())
+
+    lib = _lib()
+    smem = (lib.olaf_step_resolve_smem(Q, U), lib.olaf_step_payload_smem(Q, U, K))
+    if max(smem) > _SMEM_LIMIT:
+        raise ValueError(f"olaf_step: Q={Q}, U={U} needs {max(smem)} B of "
+                         f"shared memory per block, over {_SMEM_LIMIT}")
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    out_t = dict(
+        d_valid=empty((S, K), torch.bool),
+        d_cluster=empty((S, K), torch.int32),
+        d_worker=empty((S, K), torch.int32),
+        d_agg_count=empty((S, K), torch.int32),
+        d_gen_time=empty((S, K), torch.float32),
+        d_reward=empty((S, K), torch.float32),
+        d_payload=empty((S, K, D), torch.float32),
+        n_valid=empty((S,), torch.int32),
+    )
+    scratch = dict(slot_base=empty((S, Q), torch.int32),
+                   slot_off=empty((S, Q + 1), torch.int32),
+                   slot_upd=empty((S, max(U, 1)), torch.int32),
+                   slot_drow=empty((S, Q), torch.int32))
+    ptrs = {**{n: v.data_ptr() for n, v in st.fields().items()},
+            **{n: v.data_ptr() for n, v in burst.items()},
+            **{n: v.data_ptr() for n, v in out_t.items()},
+            **{n: v.data_ptr() for n, v in scratch.items()},
+            "capacity": cap.data_ptr()}
+    args = _Args(S=S, Q=Q, U=U, D=D, K=K, thr=float(reward_threshold), **ptrs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.olaf_step_launch(ctypes.byref(args), stream)
+    if rc != 0:
+        raise RuntimeError(f"olaf_step kernel launch failed: CUDA error {rc} "
+                           f"({lib.olaf_step_error_string(rc).decode()})")
+    olaf_step_cuda.launches += 1
+    out = dict(valid=out_t["d_valid"], n_valid=out_t["n_valid"],
+               cluster=out_t["d_cluster"], worker=out_t["d_worker"],
+               gen_time=out_t["d_gen_time"], reward=out_t["d_reward"],
+               agg_count=out_t["d_agg_count"], payload=out_t["d_payload"])
+    if squeeze:
+        out = {n: v[0] for n, v in out.items()}
+    return state, out
+
+
+#: Launches of the CUDA kernel since the count was last set to 0.
+olaf_step_cuda.launches = 0
+
+
+def olaf_step_plain(state: TorchQueueState, clusters, workers, gen_times,
+                    rewards, payloads, k: int,
+                    reward_threshold: float = math.inf, send=None,
+                    capacity=None, screen=None
+                    ) -> Tuple[TorchQueueState, Dict[str, torch.Tensor]]:
+    """Plain PyTorch version of :func:`olaf_step_cuda`, on any device: one
+    ``repro_torch.core.olaf_queue.olaf_step`` per queue. Leaves its input
+    state untouched."""
+    if state.payload.dim() == 2:
+        return olaf_queue.olaf_step(state, clusters, workers, gen_times,
+                                    rewards, payloads, k, reward_threshold,
+                                    send, capacity, None, screen)
+    S = state.payload.shape[0]
+    caps = (None if capacity is None else
+            torch.as_tensor(capacity).expand(S))
+    results = [olaf_queue.olaf_step(
+        state.select(s), clusters[s], workers[s], gen_times[s], rewards[s],
+        payloads[s], k, reward_threshold,
+        None if send is None else send[s],
+        None if caps is None else caps[s], None,
+        None if screen is None else screen[s]) for s in range(S)]
+    new_state = TorchQueueState.stack([r[0] for r in results])
+    out = {n: torch.stack([r[1][n] for r in results]) for n in results[0][1]}
+    return new_state, out
