@@ -3,12 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain PyTorch version on the card, drives the
-port's main path (the async-DRL trainer, whose every PS drain is one
-``olaf_step`` kernel call) at the paper's model width, times the kernels,
-and ends with one JSON line ``{"ok": true, "device": {...}}``. Any failed
-check raises and exits non-zero before that line. Without a CUDA card, or
-without the repository beside it, it fails.
+each kernel against its plain PyTorch version on the card, and drives the
+port's paths at the paper's model width, each with every launch count set
+to 0 just before it and read just after: the async-DRL trainer (every PS
+drain is one ``olaf_step`` kernel call), the hybrid multi-switch data plane
+fed by real PPO gradients (``run_hybrid_ppo``: every window lands through
+the ``olaf_combine`` kernel), the fat-tree scenario command, and the
+``ops.olaf_enqueue`` entry point (the ``olaf_enqueue`` kernel). It times
+the kernels and ends with one JSON line ``{"ok": true, "device": {...}}``.
+Any failed check raises and exits non-zero before that line. Without a
+CUDA card, or without the repository beside it, it fails.
 
 Imports torch, numpy and ``repro_torch`` only.
 """
@@ -30,9 +34,18 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch.core import olaf_queue  # noqa: E402
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.core.txctl import TxControlConfig  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core import hybrid, netsim  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
+                                              olaf_combine_plain)
+from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
+                                              olaf_enqueue_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain  # noqa: E402
-from repro_torch.rl.async_trainer import AsyncDRLTrainer, AsyncTrainConfig  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.optim.async_rules import ParameterServer  # noqa: E402
+from repro_torch.rl import ppo  # noqa: E402
+from repro_torch.rl.async_trainer import (AsyncDRLTrainer,  # noqa: E402
+                                          AsyncTrainConfig, run_hybrid_ppo)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -288,6 +301,217 @@ def injected_payload_run(device):
     return trainer.run()
 
 
+
+# ---------------------------------------------------------------------------
+# launch counts: every path is driven with all of them at 0 and read after
+# ---------------------------------------------------------------------------
+COUNTED = {"olaf_step": olaf_step_cuda, "olaf_combine": olaf_combine_cuda,
+           "olaf_enqueue": olaf_enqueue_cuda}
+
+
+def reset_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+# ---------------------------------------------------------------------------
+# olaf_combine and olaf_enqueue: kernel against plain, bytes and bound
+# ---------------------------------------------------------------------------
+def make_window(gen, dev, S, Q, U, D, *, gate_hi=5, cluster_lo=0,
+                cluster_hi=None, p_reset=0.3):
+    """Seeded combine operands as the hybrid's flush hands them to the
+    kernel: a reset slot's count enters at 0."""
+    cluster_hi = Q if cluster_hi is None else cluster_hi
+    slots = torch.randn((S, Q, D), generator=gen, device=dev)
+    counts = torch.randint(0, 6, (S, Q), generator=gen, device=dev,
+                           dtype=torch.int32)
+    reset = torch.rand((S, Q), generator=gen, device=dev) < p_reset
+    counts = torch.where(reset, torch.zeros_like(counts), counts)
+    updates = torch.randn((S, U, D), generator=gen, device=dev)
+    clusters = torch.randint(cluster_lo, cluster_hi, (S, U), generator=gen,
+                             device=dev, dtype=torch.int32)
+    gate = torch.randint(0, gate_hi, (S, U), generator=gen, device=dev,
+                         dtype=torch.int32) if gate_hi > 0 else \
+        torch.zeros((S, U), dtype=torch.int32, device=dev)
+    return slots, counts, updates, clusters, gate
+
+
+def check_combine(name, args) -> float:
+    want = olaf_combine_plain(*args)
+    got = olaf_combine_cuda(*args)
+    again = olaf_combine_cuda(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(want[1], got[1]), f"{name}: counts differ")
+    diff = float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+    require(torch.allclose(got[0], want[0], rtol=RTOL, atol=ATOL),
+            f"{name}: slots off by {diff}")
+    require(torch.equal(got[0], again[0]), f"{name}: not deterministic")
+    S, Q, D = args[0].shape
+    log(f"[check] olaf_combine {name}: S={S} Q={Q} U={args[2].shape[1]} "
+        f"D={D} matches (max |err| {diff:.3g})")
+    return diff
+
+
+def combine_cost(slots, counts, updates, clusters, gate):
+    """(bytes, operations, kernel bytes) of one combine on these inputs.
+    bytes, the least the function needs: 4·D·(contributing rows + slot rows
+    read where count > 0 and hits > 0 + slot rows written where hits > 0)
+    plus counts, clusters and gates read once and the new counts written
+    once. operations: a multiply and an add per contributing element, and
+    per element of a slot with hits > 0 a multiply (count > 0), an add and
+    a divide. kernel bytes, what ``olaf_combine.cu`` moves: every slot row
+    read and written."""
+    S, Q, D = slots.shape
+    U = clusters.shape[1]
+    inside = (clusters >= 0) & (clusters < Q)
+    contrib = int((inside & (gate != 0)).sum())
+    hits = torch.zeros((S, Q), dtype=torch.int64, device=slots.device)
+    flat = (torch.arange(S, device=slots.device)[:, None] * Q
+            + clusters.long().clamp(0, Q - 1))
+    hits.view(-1).index_add_(0, flat[inside], gate[inside].long())
+    touched = hits > 0
+    weighed = int((touched & (counts > 0)).sum())
+    n_touched = int(touched.sum())
+    meta = 4 * (2 * S * Q + 2 * S * U)
+    nbytes = 4 * D * (contrib + weighed + n_touched) + meta
+    ops_ = D * (2 * contrib + weighed + 2 * n_touched)
+    kernel_bytes = 4 * D * (contrib + 2 * S * Q) + meta
+    return nbytes, ops_, kernel_bytes
+
+
+def time_combine(args, reps):
+    kernel = time_ms(lambda a: olaf_combine_cuda(*a), lambda: args, reps)
+    plain = time_ms(lambda a: olaf_combine_plain(*a), lambda: args, reps)
+    kernel2 = time_ms(lambda a: olaf_combine_cuda(*a), lambda: args, reps)
+    nbytes, nops, kbytes = combine_cost(*args)
+    bound, by = bound_ms(nbytes, nops)
+    return dict(ms=min(kernel, kernel2), ms_runs=[kernel, kernel2],
+                plain_ms=plain, bound_ms=bound, bound_by=by, bytes=nbytes,
+                ops=nops, kernel_bytes=kbytes)
+
+
+def enqueue_burst_of(gen, dev, Q, U, D, t0, *, capacity, thr=math.inf,
+                     screen_p=0.0):
+    """A one-queue burst for the enqueue kernel: every row sent."""
+    b = make_burst(gen, dev, 1, U, D, 0, 2 * Q, 4, t0, capacity=capacity,
+                   thr=thr, screen_p=screen_p)
+    b.send = torch.ones_like(b.send)
+    return b
+
+
+def enqueue_args(b):
+    return (b.clusters[0], b.workers[0], b.gen_times[0], b.rewards[0],
+            b.payloads[0], b.thr, int(b.capacity[0]), b.screen[0])
+
+
+def check_enqueue(name, dev, gen, Q, U, D, n_bursts, **kw):
+    """Evolve one queue through ``n_bursts`` enqueues in kernel and plain
+    version side by side. Returns (max error, the state before the last
+    burst, the last burst)."""
+    st = queue_init(Q, D, device=dev)
+    err = 0.0
+    for i in range(n_bursts):
+        pre, b = st, enqueue_burst_of(gen, dev, Q, U, D, float(i), **kw)
+        want = olaf_enqueue_plain(st, *enqueue_args(b))
+        got = olaf_enqueue_cuda(st.clone(), *enqueue_args(b))
+        torch.cuda.synchronize()
+        for f in META:
+            require(torch.equal(getattr(want, f), getattr(got, f)),
+                    f"{name}[{i}]: state {f} differs")
+        diff = float((got.payload - want.payload).abs().max())
+        require(torch.allclose(got.payload, want.payload, rtol=RTOL,
+                               atol=ATOL), f"{name}[{i}]: payload off by {diff}")
+        err = max(err, diff)
+        st = want
+    require(int(st.n_agg) > 0, f"{name}: no aggregation")
+    log(f"[check] olaf_enqueue {name}: Q={Q} U={U} D={D} x{n_bursts} bursts "
+        f"match (max |err| {err:.3g}; n_agg={int(st.n_agg)} "
+        f"n_dropped={int(st.n_dropped)} n_screened={int(st.n_screened)})")
+    return err, pre, b
+
+
+def time_enqueue(state, b, reps):
+    """The enqueue is the cycle with k = 0: ``cycle_cost`` counts it."""
+    args = enqueue_args(b)
+    kernel = time_ms(lambda st: olaf_enqueue_cuda(st, *args), state.clone,
+                     reps)
+    plain = time_ms(lambda st: olaf_enqueue_plain(st, *args), lambda: state,
+                    reps)
+    kernel2 = time_ms(lambda st: olaf_enqueue_cuda(st, *args), state.clone,
+                      reps)
+    nbytes, nops, kbytes = cycle_cost(TorchQueueState.stack([state]), b)
+    bound, by = bound_ms(nbytes, nops)
+    return dict(ms=min(kernel, kernel2), ms_runs=[kernel, kernel2],
+                plain_ms=plain, bound_ms=bound, bound_by=by, bytes=nbytes,
+                ops=nops, kernel_bytes=kbytes)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid path: run_hybrid_ppo and the scenario command
+# ---------------------------------------------------------------------------
+HYBRID_KW = dict(n_clusters_per_group=2, workers_per_cluster=2, horizon=0.2,
+                 interval_s1=0.04, interval_s2=0.05, x1_gbps=2e-3,
+                 x2_gbps=2e-3, sw3_gbps=3e-3, size_bits=30112,
+                 sw12_slots=4, sw3_slots=4)
+
+
+class Clocks:
+    """Host wall time of named functions while a ``with`` block runs: each
+    (owner, attribute) is wrapped and restored on exit."""
+
+    def __init__(self, **targets):
+        self.targets = targets
+        self.seconds = {name: 0.0 for name in targets}
+        self.calls = {name: 0 for name in targets}
+        self._saved = []
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            orig = getattr(owner, attr)
+            self._saved.append((owner, attr, orig))
+
+            def wrapper(*a, _orig=orig, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+                    self.calls[_name] += 1
+
+            setattr(owner, attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+        return False
+
+
+def hybrid_ppo_run(dev):
+    return run_hybrid_ppo(env="lander", device=dev, seed=0, **HYBRID_KW)
+
+
+def hybrid_rows_run(dev, impl):
+    """``run_hybrid_multihop`` on the PPO path's configuration with seeded
+    rows in place of the gradients."""
+    rows = np.random.default_rng(2024).normal(size=(64, 941)).astype(
+        np.float32)
+    res, _ = hybrid.run_hybrid_multihop(941, payload_rows=rows, seed=0,
+                                        sim_impl=impl, device=dev,
+                                        **HYBRID_KW)
+    return res
+
+
+HYBRID_COUNTERS = ("launches", "combined_updates", "forward_launches",
+                   "switch_launches", "forwarded", "h2d_transfers",
+                   "queue_stats", "residual_slot_counts", "link_dropped",
+                   "rerouted")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. the card ------------------------------------------------------
@@ -331,9 +555,27 @@ def main() -> int:
     log(f"[check] c: U=0 drain-only matches (max |err| {err_c:.3g})")
     max_err = max(err_a2, err_a8, err_b, err_c)
 
+    # olaf_combine: (a) the hybrid's shape, (b) a fat-tree k=4 shape with
+    # out-of-range cluster ids, (c) every gate zero
+    comb = {}
+    for U in (4, 8, 16):
+        comb[f"a U={U}"] = make_window(gen, dev, 3, 4, U, 941)
+    comb["b"] = make_window(gen, dev, 21, 8, 64, 2**18 + 3, cluster_lo=-1,
+                            cluster_hi=9)
+    comb["c"] = make_window(gen, dev, 3, 4, 8, 941, gate_hi=0)
+    comb_err = max(check_combine(name, args) for name, args in comb.items())
+    # olaf_enqueue: the PS staging shape, and a stress shape with screen,
+    # capacity and a finite threshold
+    enq_err_a, pre_ea, b_ea = check_enqueue("a", dev, gen, 8, 16, 941, 6,
+                                            capacity=8)
+    enq_err_b, pre_eb, b_eb = check_enqueue("b", dev, gen, 64, 96,
+                                            2**20 + 3, 2, capacity=48,
+                                            thr=0.5, screen_p=0.1)
+    enq_err = max(enq_err_a, enq_err_b)
+
     # ---- 4. the main path: the trainer at the paper's model width ---------
     cfg = trainer_cfg()
-    olaf_step_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     trainer = AsyncDRLTrainer(cfg, device=dev)
     ppo_clock = Stopwatch(trainer.sim_cfg.payload_fn)
@@ -342,7 +584,8 @@ def main() -> int:
     res = trainer.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = olaf_step_cuda.launches
+    trainer_counts = read_counts()
+    launches = trainer_counts["olaf_step"]
     sim = res.sim_result
     n_iter = ppo_clock.calls  # one PPO worker iteration per sent update
     log(f"[trainer] lander D={trainer._dim} clusters=3x2 updates/worker=4 "
@@ -354,7 +597,7 @@ def main() -> int:
         f"wall={wall:.3f}s worker_iters={n_iter} "
         f"iters/s={n_iter / wall:.3f} "
         f"olaf_step calls={launches} (each 2 CUDA launches: resolve + "
-        f"payload)")
+        f"payload); launch counts {trainer_counts}")
     require(trainer._dim == 941, "the lander actor-critic is 941 floats")
     require(launches > 0, "the trainer's drains never launched the kernel")
     require(res.ps.applied > 0, "the PS applied no update")
@@ -406,6 +649,162 @@ def main() -> int:
         f"(applied={card.ps.applied}, max |dw| "
         f"{float(np.abs(card.ps.w - host.ps.w).max()):.3g})")
 
+    # ---- 4b. the hybrid path: run_hybrid_ppo at the paper's model width ---
+    clock_targets = dict(
+        ppo_iter=(ppo, "worker_iteration"), ppo_local=(ppo, "local_update"),
+        netsim=(netsim.NetworkSimulator, "run"),
+        replay_window=(hybrid.HybridMultiSwitchDataPlane, "feed_window"),
+        classify=(hybrid.HybridMultiSwitchDataPlane, "_classify_run"),
+        flush=(hybrid.HybridMultiSwitchDataPlane, "flush"),
+        result=(hybrid.HybridMultiSwitchDataPlane, "result"),
+        ps_apply=(ParameterServer, "on_updates"))
+    reset_counts()
+    t0 = time.perf_counter()
+    with Clocks(**clock_targets) as clk:
+        hyb, ps, hcfg = hybrid_ppo_run(dev)
+        torch.cuda.synchronize()
+    wall_h = time.perf_counter() - t0
+    hybrid_counts = read_counts()
+    sec = clk.seconds
+    n_ppo = clk.calls["ppo_iter"]
+    aggs = {n: q["aggregations"] for n, q in hyb.queue_stats.items()}
+    log(f"[hybrid] run_hybrid_ppo lander D={hyb.delivered[0][2].numel() if hyb.delivered else 0} "
+        f"SW1/SW2->SW3 clusters 2x2 per group, slots 4: "
+        f"generated={n_ppo} delivered={len(hyb.delivered)} "
+        f"applied={ps.applied} rejected={ps.rejected} "
+        f"aggregations={aggs} agg_counts={[u.agg_count for _, u, _ in hyb.delivered]} "
+        f"combine launches={hyb.launches} departures={hyb.forward_launches} "
+        f"combined_updates={hyb.combined_updates} h2d={hyb.h2d_transfers} "
+        f"forwarded={hyb.forwarded} wall={wall_h:.3f}s "
+        f"launch counts {hybrid_counts}")
+    require(len(hcfg.workers) == 8, "the hybrid config has 8 workers")
+    require(hyb.delivered and hyb.delivered[0][2].numel() == 941,
+            "the hybrid delivered no 941-float row")
+    require(hybrid_counts["olaf_combine"] > 0,
+            "the hybrid path never launched olaf_combine")
+    require(hybrid_counts["olaf_combine"] == hyb.launches,
+            "one combine kernel launch per window landing")
+    require(ps.applied > 0, "the hybrid PS applied no update")
+    require(ps.applied + ps.rejected == len(hyb.delivered),
+            "a delivery bypassed the PS")
+    require(np.isfinite(ps.w).all(), "non-finite hybrid PS weights")
+    require(any(u.agg_count > 1 for _, u, _ in hyb.delivered),
+            "no combined packet reached the PS")
+    require(all(v > 0 for v in aggs.values()),
+            "a switch aggregated nothing")
+    require(all(p.device.type == "cuda" and bool(torch.isfinite(p).all())
+                for _, _, p in hyb.delivered), "a delivered row is off the card "
+            "or non-finite")
+    ppo_s = sec["ppo_iter"] + sec["ppo_local"]
+    replay_s = sec["replay_window"] + sec["result"]
+    kernel_s = sec["flush"]  # staging, window puts and kernel dispatches
+    log(f"[hybrid] breakdown of {wall_h:.4f} s: PPO iterations {ppo_s:.4f} s "
+        f"({100 * ppo_s / wall_h:.2f}%, {n_ppo} calls); netsim trace "
+        f"{sec['netsim'] - ppo_s:.4f} s "
+        f"({100 * (sec['netsim'] - ppo_s) / wall_h:.2f}%); replay "
+        f"{replay_s:.4f} s ({100 * replay_s / wall_h:.2f}%: classify "
+        f"{sec['classify']:.4f} s, staging + kernels {kernel_s:.4f} s in "
+        f"{clk.calls['flush']} flushes, final flush + read-back "
+        f"{sec['result']:.4f} s); PS apply {sec['ps_apply']:.4f} s "
+        f"({100 * sec['ps_apply'] / wall_h:.2f}%); rest (set-up, row "
+        f"read-back) {wall_h - sec['netsim'] - replay_s - sec['ps_apply']:.4f} s")
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        hybrid_ppo_run(dev)
+        torch.cuda.synchronize()
+    wall_hp = time.perf_counter() - t0
+    kernels_h = device_kernels(prof)
+    busy_h = sum(us for _, us in kernels_h.values()) / 1e6
+    comb_us = sum(us for n, (_, us) in kernels_h.items() if "olaf_combine" in n)
+    if busy_h:
+        log(f"[hybrid] profiled run: device busy {busy_h:.4f} s in "
+            f"{sum(n for n, _ in kernels_h.values())} device events over "
+            f"{wall_hp:.3f} s wall: idle share "
+            f"{100 * (1 - busy_h / wall_hp):.2f}% (over the unprofiled "
+            f"run's {wall_h:.3f} s: {100 * (1 - busy_h / wall_h):.2f}%); "
+            f"olaf_combine_kernel {comb_us / 1e3:.4f} ms in "
+            f"{sum(c for n, (c, _) in kernels_h.items() if 'olaf_combine' in n)} "
+            f"launches")
+    else:
+        log("[hybrid] device busy: not measured (the profiler recorded no "
+            "device events)")
+
+    # seeded rows on the same configuration: both card backends bitwise
+    # equal, the card within tolerance of the CPU's plain path
+    reset_counts()
+    rows_w = hybrid_rows_run(dev, "window")
+    rows_e = hybrid_rows_run(dev, "event")
+    rows_c = hybrid_rows_run("cpu", "window")
+    torch.cuda.synchronize()
+    require(len(rows_w.delivered) == len(rows_e.delivered)
+            == len(rows_c.delivered) > 0, "injected rows: delivery counts")
+    rows_err = 0.0
+    for (t0_, u0, p0), (t1, u1, p1), (t2, u2, p2) in zip(
+            rows_w.delivered, rows_e.delivered, rows_c.delivered):
+        require(t0_ == t1 == t2 and u0.agg_count == u1.agg_count
+                == u2.agg_count, "injected rows: delivery metadata")
+        require(torch.equal(p0, p1), "injected rows: card backends differ")
+        require(torch.allclose(p0.cpu(), p2, rtol=RTOL, atol=ATOL),
+                "injected rows: card differs from the CPU")
+        rows_err = max(rows_err, float((p0.cpu() - p2).abs().max()))
+    for f in HYBRID_COUNTERS:
+        require(getattr(rows_w, f) == getattr(rows_c, f),
+                f"injected rows: {f} differs between card and CPU")
+        if f != "h2d_transfers":
+            require(getattr(rows_w, f) == getattr(rows_e, f),
+                    f"injected rows: {f} differs between the backends")
+    require(np.array_equal(rows_w.final_counts, rows_c.final_counts),
+            "injected rows: final counts")
+    log(f"[hybrid] injected rows: card event == card window bitwise "
+        f"({len(rows_w.delivered)} deliveries, {rows_w.launches} launches), "
+        f"card vs CPU max |err| {rows_err:.3g}, counters equal")
+
+    # ---- 4c. the scenario command: fat-tree k=4 at D = 941 ----------------
+    reset_counts()
+    t0 = time.perf_counter()
+    scen = launch_train.main(["--mode", "scenario", "--topology", "fattree",
+                              "--fattree-k", "4", "--sim-dim", "941",
+                              "--sim-impl", "window"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    scenario_counts = read_counts()
+    require(scenario_counts["olaf_combine"] == scen.launches > 0,
+            "the scenario never launched olaf_combine")
+    require(len(scen.switch_launches) == 21,
+            f"fat-tree k=4 has 21 switches, the run {len(scen.switch_launches)}")
+    require(all(bool(torch.isfinite(p).all()) and p.device.type == "cuda"
+                for _, _, p in scen.delivered), "scenario rows")
+    log(f"[scenario] fat-tree k=4: {len(scen.switch_launches)} switches, "
+        f"wall {wall_s:.3f} s, launch counts {scenario_counts}")
+
+    # ---- 4d. the enqueue entry point: a stream of bursts at D = 941 -------
+    reset_counts()
+    st_card = queue_init(8, 941, device=dev)
+    st_host = queue_init(8, 941, device="cpu")
+    for i in range(6):
+        b = enqueue_burst_of(gen, dev, 8, 16, 941, 20.0 + i, capacity=6,
+                             thr=1.0, screen_p=0.1)
+        args = enqueue_args(b)
+        st_card = ops.olaf_enqueue(st_card, *args)
+        st_host = olaf_enqueue_plain(
+            st_host, *(a.cpu() if isinstance(a, torch.Tensor) else a
+                       for a in args))
+    torch.cuda.synchronize()
+    enqueue_counts = read_counts()
+    for f in META:
+        require(torch.equal(getattr(st_card, f).cpu(), getattr(st_host, f)),
+                f"enqueue path: {f} differs between card and CPU")
+    require(torch.allclose(st_card.payload.cpu(), st_host.payload, rtol=RTOL,
+                           atol=ATOL), "enqueue path: payload")
+    require(enqueue_counts["olaf_enqueue"] == 6,
+            "ops.olaf_enqueue did not launch its kernel once per burst")
+    log(f"[enqueue] ops.olaf_enqueue x6 bursts Q=8 U=16 D=941: card equals "
+        f"CPU (n_agg={int(st_card.n_agg)} n_repl={int(st_card.n_repl)} "
+        f"n_dropped={int(st_card.n_dropped)} "
+        f"n_screened={int(st_card.n_screened)}), launch counts "
+        f"{enqueue_counts}")
+
     # ---- 5. timing ---------------------------------------------------------
     t_a = time_shape(pre_a2, b_a2, reps=50)
     t_a8 = time_shape(pre_a8, b_a8, reps=50)
@@ -421,7 +820,30 @@ def main() -> int:
     log("[time] olaf_step a Q=2 device us per launch (profiler): " + (
         ", ".join(f"{n} {us:.3f}" for n, us in split.items())
         if split else "not measured"))
+    t_ca = {U: time_combine(comb[f"a U={U}"], reps=50) for U in (4, 16)}
+    t_cb = time_combine(comb["b"], reps=10)
+    t_ea = time_enqueue(pre_ea, b_ea, reps=50)
+    t_eb = time_enqueue(pre_eb, b_eb, reps=5)
+    for name, t in (("olaf_combine a S=3 Q=4 U=4 D=941", t_ca[4]),
+                    ("olaf_combine a S=3 Q=4 U=16 D=941", t_ca[16]),
+                    ("olaf_combine b S=21 Q=8 U=64 D=2^18+3", t_cb),
+                    ("olaf_enqueue a Q=8 U=16 D=941", t_ea),
+                    ("olaf_enqueue b Q=64 U=96 D=2^20+3", t_eb)):
+        log(f"[time] {name}: kernel {t['ms']:.4f} ms "
+            f"(runs {t['ms_runs'][0]:.4f}, {t['ms_runs'][1]:.4f}) "
+            f"plain {t['plain_ms']:.4f} ms bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}, {t['bytes']} B; the kernel moves "
+            f"{t['kernel_bytes']} B)")
     log(f"[time] total smoke wall {time.perf_counter() - t_start:.1f} s")
+    paths = dict(trainer=trainer_counts, hybrid_ppo=hybrid_counts,
+                 scenario=scenario_counts, enqueue=enqueue_counts)
+
+    def by_path(name):
+        return {p: c[name] for p, c in paths.items()}
+
+    no_library = ("none: no single PyTorch call computes the function "
+                  "(a weighted segment mean with skip rules / Algorithm 1's "
+                  "sequential resolve)")
 
     entry = dict(
         name="olaf_step", route="cuda",
@@ -438,9 +860,41 @@ def main() -> int:
         trainer_q8=dict(shape="S=1 Q=8 U=8 k=2 D=941", ms=t_a8["ms"],
                         plain_ms=t_a8["plain_ms"], bound_ms=t_a8["bound_ms"],
                         bytes=t_a8["bytes"],
-                        kernel_bytes=t_a8["kernel_bytes"]))
+                        kernel_bytes=t_a8["kernel_bytes"]),
+        launches_by_path=by_path("olaf_step"))
+    combine_entry = dict(
+        name="olaf_combine", route="cuda",
+        source="src/repro_torch/kernels/csrc/olaf_combine.cu",
+        replaces="src/repro/kernels/olaf_combine.py:95",
+        launches=hybrid_counts["olaf_combine"], max_abs_err=comb_err,
+        ms=t_ca[4]["ms"], plain_ms=t_ca[4]["plain_ms"],
+        bound_ms=t_ca[4]["bound_ms"], bound_by=t_ca[4]["bound_by"],
+        library_ms=None, library_note=no_library,
+        bytes=t_ca[4]["bytes"], kernel_bytes=t_ca[4]["kernel_bytes"],
+        cuda_launches_per_call=1, shape="S=3 Q=4 U=4 D=941 (hybrid window)",
+        u16=dict(shape="S=3 Q=4 U=16 D=941", **{
+            k: t_ca[16][k] for k in ("ms", "plain_ms", "bound_ms", "bytes",
+                                     "kernel_bytes")}),
+        fattree=dict(shape="S=21 Q=8 U=64 D=262147", **{
+            k: t_cb[k] for k in ("ms", "plain_ms", "bound_ms", "bytes",
+                                 "kernel_bytes")}),
+        launches_by_path=by_path("olaf_combine"))
+    enqueue_entry = dict(
+        name="olaf_enqueue", route="cuda",
+        source="src/repro_torch/kernels/csrc/olaf_step.cu",
+        replaces="src/repro/kernels/olaf_combine.py:356",
+        launches=enqueue_counts["olaf_enqueue"], max_abs_err=enq_err,
+        ms=t_ea["ms"], plain_ms=t_ea["plain_ms"], bound_ms=t_ea["bound_ms"],
+        bound_by=t_ea["bound_by"], library_ms=None, library_note=no_library,
+        bytes=t_ea["bytes"], kernel_bytes=t_ea["kernel_bytes"],
+        cuda_launches_per_call=2, shape="Q=8 U=16 D=941",
+        stress=dict(shape="Q=64 U=96 D=1048579 capacity=48", **{
+            k: t_eb[k] for k in ("ms", "plain_ms", "bound_ms", "bytes",
+                                 "kernel_bytes")}),
+        launches_by_path=by_path("olaf_enqueue"))
     print(smi, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -243,6 +243,35 @@ EV_DROP = 0  # full-queue or reward-gated drop, or a withheld row
 EV_AGG = 1  # running-mean aggregate into the target slot
 EV_RESET = 2  # slot payload restarts from this update (append / replace)
 
+#: Algorithm 1 classification label -> queue event, one place. The hybrid
+#: window replay maps ``PyOlafQueue.classify_batch`` labels onto device
+#: events through this table; :func:`classify_slot_events` inverts it.
+EVENT_OF_CLASS = {"append": EV_RESET, "replace": EV_RESET,
+                  "agg": EV_AGG, "drop": EV_DROP}
+
+
+def classify_slot_events(slots, events, pre_occupied) -> List[str]:
+    """Host-side inverse of the Algorithm 1 event stream: the
+    ``classify_batch`` labels (``append`` / ``replace`` / ``agg`` /
+    ``drop``) of a per-update ``(slot, event)`` assignment.
+
+    ``pre_occupied`` is the (Q,) bool occupancy before the burst; the walk
+    replays occupancy forward, so a RESET into a vacant slot is an append
+    and a RESET into an occupied slot a replace.
+    """
+    occ = [bool(v) for v in np.asarray(pre_occupied)]
+    labels: List[str] = []
+    for slot, event in zip(np.asarray(slots), np.asarray(events)):
+        slot, event = int(slot), int(event)
+        if event == EV_DROP:
+            labels.append("drop")
+        elif event == EV_AGG:
+            labels.append("agg")
+        else:  # EV_RESET
+            labels.append("replace" if occ[slot] else "append")
+            occ[slot] = True
+    return labels
+
 
 @dataclasses.dataclass
 class TorchQueueState:

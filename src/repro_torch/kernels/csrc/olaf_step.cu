@@ -8,6 +8,11 @@
 // (occupied >= capacity) and an append takes the first empty slot at ANY
 // index.
 //
+// The same two launches with K = 0 and every row sent (olaf_enqueue_launch)
+// replace repro/kernels/olaf_combine.py::olaf_enqueue_pallas (body
+// _enqueue_kernel), the enqueue-only half of the cycle; they are held to
+// repro/core/olaf_queue.py::jax_enqueue_burst the same way.
+//
 // Bound: bytes. Per cycle this kernel reads the contributing burst rows,
 // reads and writes every slot row the burst touches or the drain pops, and
 // writes the k drained rows; the least the cycle needs is smaller (no read
@@ -67,7 +72,7 @@ struct OlafStepArgs {
   const int* u_worker;
   const float* u_gen_time;
   const float* u_reward;
-  const bool* u_send;
+  const bool* u_send;  // null: every row sent (olaf_enqueue_launch)
   const bool* u_screen;
   const float* u_payload;
   // drained rows (metadata read before the clear)
@@ -78,7 +83,7 @@ struct OlafStepArgs {
   float* d_gen_time;
   float* d_reward;
   float* d_payload;
-  int* n_valid;
+  int* n_valid;  // null with K = 0
   // plan written by the resolve launch, read by the payload launch
   int* slot_base;  // (S,Q): -1 untouched, else the old payload's weight
   int* slot_off;   // (S,Q+1): CSR offsets into slot_upd
@@ -155,7 +160,7 @@ __global__ void olaf_resolve_kernel(OlafStepArgs a) {
     const int w = a.u_worker[u0 + u];
     const float t = a.u_gen_time[u0 + u];
     const float r = a.u_reward[u0 + u];
-    const bool snd = a.u_send[u0 + u];
+    const bool snd = a.u_send == nullptr || a.u_send[u0 + u];  // enqueue: all sent
     const bool scr = a.u_screen[u0 + u];
     const bool act = snd && !scr;  // sent AND admitted by the screen
 
@@ -290,7 +295,7 @@ __global__ void olaf_resolve_kernel(OlafStepArgs a) {
     a.n_agg[s] = na;
     a.n_repl[s] = nr;
     a.n_screened[s] = ns;
-    a.n_valid[s] = nvalid;
+    if (a.n_valid != nullptr) a.n_valid[s] = nvalid;
   }
 }
 
@@ -323,7 +328,7 @@ __global__ void olaf_payload_kernel(OlafStepArgs a) {
   const size_t Dz = static_cast<size_t>(D);
   float* pay = a.payload + q0 * Dz + d;
   const float* burst = a.u_payload + static_cast<size_t>(s) * U * Dz + d;
-  float* drained = a.d_payload + static_cast<size_t>(s) * K * Dz + d;
+  float* drained = K > 0 ? a.d_payload + static_cast<size_t>(s) * K * Dz + d : nullptr;
 
   for (int q = 0; q < Q; ++q) {
     const int b = base[q], t = drow[q];
@@ -345,6 +350,19 @@ __global__ void olaf_payload_kernel(OlafStepArgs a) {
     if (!dvalid[t]) drained[t * Dz] = 0.0f;
 }
 
+extern "C" size_t olaf_step_resolve_smem(int Q, int U);
+extern "C" size_t olaf_step_payload_smem(int Q, int U, int K);
+
+static int launch_cycle(const OlafStepArgs& a, cudaStream_t st) {
+  olaf_resolve_kernel<<<a.S, 32, olaf_step_resolve_smem(a.Q, a.U), st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((a.D + kPayloadThreads - 1) / kPayloadThreads, a.S);
+  olaf_payload_kernel<<<grid, kPayloadThreads,
+                        olaf_step_payload_smem(a.Q, a.U, a.K), st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" {
 
 size_t olaf_step_resolve_smem(int Q, int U) {
@@ -357,15 +375,20 @@ size_t olaf_step_payload_smem(int Q, int U, int K) {
 
 // Both launches on `stream`; returns cudaGetLastError() after each (0 = ok).
 int olaf_step_launch(const OlafStepArgs* args, void* stream) {
-  const OlafStepArgs a = *args;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  olaf_resolve_kernel<<<a.S, 32, olaf_step_resolve_smem(a.Q, a.U), st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.D + kPayloadThreads - 1) / kPayloadThreads, a.S);
-  olaf_payload_kernel<<<grid, kPayloadThreads,
-                        olaf_step_payload_smem(a.Q, a.U, a.K), st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cycle(*args, static_cast<cudaStream_t>(stream));
+}
+
+// The enqueue-only half of the cycle (olaf_combine.py::olaf_enqueue_pallas):
+// the same resolve and payload launches with no drain (K = 0: no drained
+// row is allocated, selected or written) and no transmission-control gate
+// (u_send null: every row is sent; screen and capacity still apply).
+int olaf_enqueue_launch(const OlafStepArgs* args, void* stream) {
+  OlafStepArgs a = *args;
+  if (a.K != 0 || a.u_send != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  a.d_valid = nullptr;
+  a.d_cluster = a.d_worker = a.d_agg_count = a.n_valid = nullptr;
+  a.d_gen_time = a.d_reward = a.d_payload = nullptr;
+  return launch_cycle(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* olaf_step_error_string(int err) {

@@ -43,8 +43,9 @@ class _Args(ctypes.Structure):
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load("olaf_step")
-    lib.olaf_step_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    lib.olaf_step_launch.restype = ctypes.c_int
+    for fn in (lib.olaf_step_launch, lib.olaf_enqueue_launch):
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.olaf_step_error_string.argtypes = [ctypes.c_int]
     lib.olaf_step_error_string.restype = ctypes.c_char_p
     for fn in (lib.olaf_step_resolve_smem, lib.olaf_step_payload_smem):
@@ -63,16 +64,123 @@ _STATE_DTYPES = dict(cluster=torch.int32, worker=torch.int32,
                      n_screened=torch.int32)
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def _check(op: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if t.device != device:
-        raise ValueError(f"olaf_step: {name} is on {t.device}, the queue on {device}")
+        raise ValueError(f"{op}: {name} is on {t.device}, the queue on {device}")
     if t.dtype != dtype:
-        raise TypeError(f"olaf_step: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"olaf_step: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"olaf_step: {name} must be contiguous")
+        raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def _launch_cycle(entry: str, state: TorchQueueState, clusters, workers,
+                  gen_times, rewards, payloads, k: int, reward_threshold,
+                  send, capacity, screen):
+    """Check, cast and launch one ``csrc/olaf_step.cu`` entry point
+    (``olaf_step_launch``, or ``olaf_enqueue_launch`` with ``k == 0`` and
+    no ``send``) on the queue's CUDA device; the queue is updated in place.
+    Returns ``(state, out)``, ``out`` holding the drained rows (none with
+    ``k == 0``). Counts nothing: each public wrapper counts its own."""
+    name = entry[:-len("_launch")]
+    dev = state.payload.device
+    operands = dict(clusters=clusters, workers=workers, gen_times=gen_times,
+                    rewards=rewards, payloads=payloads, send=send,
+                    capacity=capacity, screen=screen)
+    for n, v in operands.items():  # before any coercion could copy them
+        if isinstance(v, torch.Tensor) and v.device != dev:
+            raise ValueError(f"{name}: {n} is on {v.device}, the queue "
+                             f"on {dev}: operands on more than one device")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}_cuda needs CUDA tensors, got {dev}")
+    squeeze = state.payload.dim() == 2
+    st = state
+    if squeeze:  # views: the in-place update reaches the caller's tensors
+        st = TorchQueueState(**{n: v.unsqueeze(0)
+                                for n, v in state.fields().items()})
+        clusters, workers, gen_times, rewards, payloads = (
+            x.unsqueeze(0) for x in (clusters, workers, gen_times, rewards,
+                                     payloads))
+        send = None if send is None else send.unsqueeze(0)
+        screen = None if screen is None else screen.unsqueeze(0)
+    S, Q, D = st.payload.shape
+    U = clusters.shape[-1]
+    K = min(int(k), Q)
+    for n, v in st.fields().items():
+        shape = (S, Q, D) if n == "payload" else (
+            (S,) if v.dim() == 1 else (S, Q))
+        _check(name, n, v, _STATE_DTYPES[n], shape, dev)
+    ints = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    floats = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    bools = lambda x: torch.as_tensor(x, dtype=torch.bool, device=dev)  # noqa: E731
+    burst = dict(
+        u_cluster=ints(clusters).contiguous(),
+        u_worker=ints(workers).contiguous(),
+        u_gen_time=floats(gen_times).contiguous(),
+        u_reward=floats(rewards).contiguous(),
+        u_send=(None if entry == "olaf_enqueue_launch" else
+                torch.ones((S, U), dtype=torch.bool, device=dev)
+                if send is None else bools(send).contiguous()),
+        u_screen=(torch.zeros((S, U), dtype=torch.bool, device=dev)
+                  if screen is None else bools(screen).contiguous()),
+        u_payload=floats(payloads).contiguous(),
+    )
+    for n, v in burst.items():
+        if v is not None:
+            _check(name, n, v, v.dtype,
+                   (S, U, D) if n == "u_payload" else (S, U), dev)
+    if capacity is None or isinstance(capacity, int):
+        # a fill on the device: a host scalar would be a blocking copy
+        cap = torch.full((S,), Q if capacity is None else capacity,
+                         dtype=torch.int32, device=dev)
+    else:
+        cap = ints(capacity).expand(S).contiguous()
+
+    lib = _lib()
+    smem = (lib.olaf_step_resolve_smem(Q, U), lib.olaf_step_payload_smem(Q, U, K))
+    if max(smem) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: Q={Q}, U={U} needs {max(smem)} B of "
+                         f"shared memory per block, over {_SMEM_LIMIT}")
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    drain = entry == "olaf_step_launch"
+    out_t = {} if not drain else dict(
+        d_valid=empty((S, K), torch.bool),
+        d_cluster=empty((S, K), torch.int32),
+        d_worker=empty((S, K), torch.int32),
+        d_agg_count=empty((S, K), torch.int32),
+        d_gen_time=empty((S, K), torch.float32),
+        d_reward=empty((S, K), torch.float32),
+        d_payload=empty((S, K, D), torch.float32),
+        n_valid=empty((S,), torch.int32),
+    )
+    scratch = dict(slot_base=empty((S, Q), torch.int32),
+                   slot_off=empty((S, Q + 1), torch.int32),
+                   slot_upd=empty((S, max(U, 1)), torch.int32),
+                   slot_drow=empty((S, Q), torch.int32))
+    ptrs = {**{n: v.data_ptr() for n, v in st.fields().items()},
+            **{n: None if v is None else v.data_ptr()
+               for n, v in burst.items()},
+            **{n: v.data_ptr() for n, v in out_t.items()},
+            **{n: v.data_ptr() for n, v in scratch.items()},
+            "capacity": cap.data_ptr()}
+    args = _Args(S=S, Q=Q, U=U, D=D, K=K, thr=float(reward_threshold), **ptrs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(ctypes.byref(args), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({lib.olaf_step_error_string(rc).decode()})")
+    if not drain:
+        return state, {}
+    out = dict(valid=out_t["d_valid"], n_valid=out_t["n_valid"],
+               cluster=out_t["d_cluster"], worker=out_t["d_worker"],
+               gen_time=out_t["d_gen_time"], reward=out_t["d_reward"],
+               agg_count=out_t["d_agg_count"], payload=out_t["d_payload"])
+    if squeeze:
+        out = {n: v[0] for n, v in out.items()}
+    return state, out
 
 
 def olaf_step_cuda(state: TorchQueueState, clusters, workers, gen_times,
@@ -92,92 +200,11 @@ def olaf_step_cuda(state: TorchQueueState, clusters, workers, gen_times,
     and on a failed launch. Returns
     ``(state, out)`` with ``out`` as :func:`olaf_step_plain` gives it.
     """
-    dev = state.payload.device
-    operands = dict(clusters=clusters, workers=workers, gen_times=gen_times,
-                    rewards=rewards, payloads=payloads, send=send,
-                    capacity=capacity, screen=screen)
-    for n, v in operands.items():  # before any coercion could copy them
-        if isinstance(v, torch.Tensor) and v.device != dev:
-            raise ValueError(f"olaf_step: {n} is on {v.device}, the queue "
-                             f"on {dev}: operands on more than one device")
-    if dev.type != "cuda":
-        raise ValueError(f"olaf_step_cuda needs CUDA tensors, got {dev}")
-    squeeze = state.payload.dim() == 2
-    st = state
-    if squeeze:  # views: the in-place update reaches the caller's tensors
-        st = TorchQueueState(**{n: v.unsqueeze(0)
-                                for n, v in state.fields().items()})
-        clusters, workers, gen_times, rewards, payloads = (
-            x.unsqueeze(0) for x in (clusters, workers, gen_times, rewards,
-                                     payloads))
-        send = None if send is None else send.unsqueeze(0)
-        screen = None if screen is None else screen.unsqueeze(0)
-    S, Q, D = st.payload.shape
-    U = clusters.shape[-1]
-    K = min(int(k), Q)
-    for n, v in st.fields().items():
-        shape = (S, Q, D) if n == "payload" else (
-            (S,) if v.dim() == 1 else (S, Q))
-        _check(n, v, _STATE_DTYPES[n], shape, dev)
-    ints = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-    floats = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
-    bools = lambda x: torch.as_tensor(x, dtype=torch.bool, device=dev)  # noqa: E731
-    burst = dict(
-        u_cluster=ints(clusters).contiguous(),
-        u_worker=ints(workers).contiguous(),
-        u_gen_time=floats(gen_times).contiguous(),
-        u_reward=floats(rewards).contiguous(),
-        u_send=(torch.ones((S, U), dtype=torch.bool, device=dev)
-                if send is None else bools(send).contiguous()),
-        u_screen=(torch.zeros((S, U), dtype=torch.bool, device=dev)
-                  if screen is None else bools(screen).contiguous()),
-        u_payload=floats(payloads).contiguous(),
-    )
-    for n, v in burst.items():
-        _check(n, v, v.dtype, (S, U, D) if n == "u_payload" else (S, U), dev)
-    cap = (torch.full((S,), Q, dtype=torch.int32, device=dev) if capacity is None
-           else ints(capacity).expand(S).contiguous())
-
-    lib = _lib()
-    smem = (lib.olaf_step_resolve_smem(Q, U), lib.olaf_step_payload_smem(Q, U, K))
-    if max(smem) > _SMEM_LIMIT:
-        raise ValueError(f"olaf_step: Q={Q}, U={U} needs {max(smem)} B of "
-                         f"shared memory per block, over {_SMEM_LIMIT}")
-    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
-    out_t = dict(
-        d_valid=empty((S, K), torch.bool),
-        d_cluster=empty((S, K), torch.int32),
-        d_worker=empty((S, K), torch.int32),
-        d_agg_count=empty((S, K), torch.int32),
-        d_gen_time=empty((S, K), torch.float32),
-        d_reward=empty((S, K), torch.float32),
-        d_payload=empty((S, K, D), torch.float32),
-        n_valid=empty((S,), torch.int32),
-    )
-    scratch = dict(slot_base=empty((S, Q), torch.int32),
-                   slot_off=empty((S, Q + 1), torch.int32),
-                   slot_upd=empty((S, max(U, 1)), torch.int32),
-                   slot_drow=empty((S, Q), torch.int32))
-    ptrs = {**{n: v.data_ptr() for n, v in st.fields().items()},
-            **{n: v.data_ptr() for n, v in burst.items()},
-            **{n: v.data_ptr() for n, v in out_t.items()},
-            **{n: v.data_ptr() for n, v in scratch.items()},
-            "capacity": cap.data_ptr()}
-    args = _Args(S=S, Q=Q, U=U, D=D, K=K, thr=float(reward_threshold), **ptrs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.olaf_step_launch(ctypes.byref(args), stream)
-    if rc != 0:
-        raise RuntimeError(f"olaf_step kernel launch failed: CUDA error {rc} "
-                           f"({lib.olaf_step_error_string(rc).decode()})")
+    result = _launch_cycle("olaf_step_launch", state, clusters, workers,
+                           gen_times, rewards, payloads, k, reward_threshold,
+                           send, capacity, screen)
     olaf_step_cuda.launches += 1
-    out = dict(valid=out_t["d_valid"], n_valid=out_t["n_valid"],
-               cluster=out_t["d_cluster"], worker=out_t["d_worker"],
-               gen_time=out_t["d_gen_time"], reward=out_t["d_reward"],
-               agg_count=out_t["d_agg_count"], payload=out_t["d_payload"])
-    if squeeze:
-        out = {n: v[0] for n, v in out.items()}
-    return state, out
+    return result
 
 
 #: Launches of the CUDA kernel since the count was last set to 0.

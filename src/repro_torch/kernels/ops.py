@@ -1,26 +1,145 @@
 """Public entry points of the port's kernels, routed by the tensors' device.
 
-A CUDA queue state launches the hand-written kernel; a CPU state takes the
-kernel's plain PyTorch version. Any other device, or operands spread over
-more than one device, raises: there is no fallback from one to the other.
+The counterparts of ``repro.kernels.ops``'s ``olaf_combine``,
+``olaf_combine_multi``, ``olaf_combine_window``, ``olaf_forward``,
+``olaf_enqueue`` and ``olaf_step``, without the TPU tiling arguments. CUDA
+operands launch the hand-written kernel; CPU operands take the kernel's
+plain PyTorch version. Any other device, or operands spread over more than
+one device, raises: there is no fallback from one to the other.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.olaf_queue import TorchQueueState, expire_inactive_drains
+from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,
+                                              olaf_combine_plain)
+from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,
+                                              olaf_enqueue_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain
 
 
-def _device_of(*tensors) -> torch.device:
+def _device_of(*tensors, op: str = "olaf_step") -> torch.device:
     devices = {t.device for t in tensors if isinstance(t, torch.Tensor)}
     if len(devices) != 1:
-        raise ValueError(f"olaf_step: operands on more than one device: "
+        raise ValueError(f"{op}: operands on more than one device: "
                          f"{sorted(map(str, devices))}")
     return devices.pop()
+
+
+def _route(op: str, dev: torch.device, cuda_fn, plain_fn):
+    if dev.type == "cuda":
+        return cuda_fn
+    if dev.type == "cpu":
+        return plain_fn
+    raise ValueError(f"{op}: no kernel for device {dev}")
+
+
+def _on(x, dev: torch.device, dtype) -> torch.Tensor:
+    """``x`` (a tensor on ``dev`` or host data) as a contiguous ``dtype``
+    tensor on ``dev``; a tensor on another device raises."""
+    if isinstance(x, torch.Tensor) and x.device != dev:
+        raise ValueError(f"operand on {x.device}, the slots on {dev}: "
+                         f"operands on more than one device")
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                           else x, dtype=dtype, device=dev).contiguous()
+
+
+def olaf_combine(slots, counts, updates, clusters, gate
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Combine a burst of updates into cluster slots (running mean).
+
+    slots (Q, D) float32, counts (Q,) int32, updates (U, D), clusters (U,)
+    int32, gate (U,) int32 or bool -> new ``(slots (Q, D), counts (Q,))``.
+    A leading S axis on every operand batches S independent queues in one
+    launch. ``gate`` is each update's aggregation weight (0 drops it).
+    """
+    dev = _device_of(slots, counts, updates, clusters, gate, op="olaf_combine")
+    fn = _route("olaf_combine", dev, olaf_combine_cuda, olaf_combine_plain)
+    return fn(slots, counts, updates, clusters, gate.to(torch.int32))
+
+
+def olaf_combine_multi(slots, counts, updates, clusters, gate
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-queue combine: every operand carries a leading S (switch) axis
+    — slots (S, Q, D), counts (S, Q), updates (S, U, D), clusters/gate
+    (S, U) — in one launch."""
+    if slots.dim() != 3:
+        raise ValueError(f"olaf_combine_multi: slots must be (S, Q, D), got "
+                         f"{tuple(slots.shape)}")
+    return olaf_combine(slots, counts, updates, clusters, gate)
+
+
+def olaf_combine_window(slots, counts, updates, clusters, gate, reset_slots
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Window-batched combine for the hybrid replay: one whole transmission
+    window — ``updates`` (S, U, D), ``clusters``/``gate`` (S, U) and
+    ``reset_slots`` (S, Q) bool, the last three host (numpy) buffers or
+    tensors on the slots' device — in one :func:`olaf_combine_multi`
+    launch. ``gate`` carries each entry's weight with non-contributing
+    entries already 0; a slot in ``reset_slots`` restarts from this
+    window, so its count enters the combine at 0."""
+    dev = slots.device
+    reset = _on(reset_slots, dev, torch.bool)
+    counts_in = torch.where(reset, torch.zeros((), dtype=counts.dtype,
+                                               device=dev), counts)
+    return olaf_combine_multi(slots, counts_in, updates,
+                              _on(clusters, dev, torch.int32),
+                              _on(gate, dev, torch.int32))
+
+
+def olaf_forward(slots, counts, updates, clusters, gate, reset_slots,
+                 drain_sw, drain_slot, drain_hop=None):
+    """Window combine and departing-row gather, one dispatch per boundary.
+
+    Lands the pending window exactly as :func:`olaf_combine_window` (only
+    when ``updates`` has U > 0; U = 0 is a drain-only boundary), then
+    gathers the departing rows ``drain_sw``/``drain_slot`` (K,) from the
+    post-combine buffer and clears their slots. Returns new
+    ``(slots, counts, drained (K, D))``, or ``(…, drained, hops (K,))``
+    when ``drain_hop`` (K,) is given (next hop: a switch index, -1 = PS,
+    -2 = dropped); a row with ``hop < -1`` is zeroed. The drained rows are
+    copies, never views of the slot buffer. The passed-in tensors are not
+    modified.
+    """
+    dev = slots.device
+    if updates.shape[1] > 0:
+        slots, counts = olaf_combine_window(slots, counts, updates, clusters,
+                                            gate, reset_slots)
+    else:
+        slots, counts = slots.clone(), counts.clone()
+    sw = _on(drain_sw, dev, torch.int64)
+    slot = _on(drain_slot, dev, torch.int64)
+    drained = slots[sw, slot]  # advanced indexing: a copy, (K, D)
+    slots[sw, slot] = 0.0  # the combine's own fresh buffers
+    counts[sw, slot] = 0
+    if drain_hop is None:
+        return slots, counts, drained
+    hops = _on(drain_hop, dev, torch.int32)
+    drained = torch.where((hops >= -1)[:, None], drained,
+                          torch.zeros((), dtype=drained.dtype, device=dev))
+    return slots, counts, drained, hops
+
+
+def olaf_enqueue(state: TorchQueueState, clusters, workers, gen_times,
+                 rewards, payloads, reward_threshold: float = math.inf,
+                 capacity=None, screen=None) -> TorchQueueState:
+    """Fused burst enqueue (Algorithm 1 for U updates, no drain) for one
+    queue: the counterpart of ``repro.kernels.ops.olaf_enqueue``.
+    ``screen`` (bool (U,)) withholds rows flagged by the ingress integrity
+    gate and counts them in ``n_screened``; ``capacity`` caps the logical
+    slot count. On CUDA this is one
+    :func:`~repro_torch.kernels.olaf_enqueue.olaf_enqueue_cuda` call, which
+    updates the queue in place: treat the passed-in state as consumed."""
+    dev = _device_of(*state.fields().values(), clusters, workers, gen_times,
+                     rewards, payloads, capacity, screen, op="olaf_enqueue")
+    fn = _route("olaf_enqueue", dev, olaf_enqueue_cuda, olaf_enqueue_plain)
+    return fn(state, clusters, workers, gen_times, rewards, payloads,
+              reward_threshold, capacity, screen)
 
 
 def olaf_step(state: TorchQueueState, clusters, workers, gen_times, rewards,
@@ -46,12 +165,7 @@ def olaf_step(state: TorchQueueState, clusters, workers, gen_times, rewards,
     dev = _device_of(*state.fields().values(), clusters, workers, gen_times,
                      rewards, payloads, send, capacity, active_workers,
                      screen)
-    if dev.type == "cuda":
-        step = olaf_step_cuda
-    elif dev.type == "cpu":
-        step = olaf_step_plain
-    else:
-        raise ValueError(f"olaf_step: no kernel for device {dev}")
+    step = _route("olaf_step", dev, olaf_step_cuda, olaf_step_plain)
     state, out = step(state, clusters, workers, gen_times, rewards, payloads,
                       k, reward_threshold, send, capacity, screen)
     if active_workers is not None:

@@ -252,6 +252,82 @@ class AsyncDRLTrainer:
             time_to_n_updates=self.time_to_n)
 
 
+def run_hybrid_ppo(*, env: str = "cartpole",
+                   ppo_cfg: Optional[PPOConfig] = None,
+                   ps_cfg: Optional[PSConfig] = None, n_envs: int = 2,
+                   local_lr: float = 5e-3, seed: int = 0,
+                   sharded: bool = True, batched: bool = True,
+                   topology=None, flush_cadence: bool = True,
+                   sim_impl: Optional[str] = None, device="cuda",
+                   **multihop_kw):
+    """Multi-switch hybrid run fed by real PPO gradients end to end: the
+    counterpart of ``repro.rl.async_trainer.run_hybrid_ppo``.
+
+    Every generated update's payload is the owning worker's flattened PPO
+    gradient (its reward the episode mean) from its current local params,
+    computed on ``device``; each worker draws from its own
+    ``torch.Generator`` seeded ``seed * 7919 + worker_id``. The netsim
+    trace carries metadata only and is replayed by
+    :func:`repro_torch.core.hybrid.run_hybrid_multihop` on ``device`` (the
+    ``olaf_combine`` kernel lands every window on a card), and every PS
+    delivery goes through ``ParameterServer.on_updates`` with its combined
+    packet's ``agg_count`` weight, reward and generation time.
+
+    ``topology`` is a ``TopologySpec`` or a prebuilt ``SimCfg``; the
+    default is the §8.3 SW1/SW2/SW3 fan-in of ``multihop_cfg(
+    **multihop_kw)``. ``sim_impl`` is ``"event"``, ``"window"`` or None
+    (keep ``batched``). ``device`` defaults to ``"cuda"`` and raises
+    without a card unless the caller passes ``"cpu"``.
+
+    Returns ``(HybridResult, ParameterServer, SimCfg)``.
+    """
+    from repro_torch.core.hybrid import run_hybrid_multihop
+    from repro_torch.core.netsim import multihop_cfg
+    from repro_torch.core.topology import resolve_sim_cfg
+
+    dev = resolve_device(device)
+    env_obj = make_env(env)
+    pcfg = dataclasses.replace(ppo_cfg or PPOConfig(),
+                               obs_dim=env_obj.obs_dim,
+                               n_actions=env_obj.n_actions)
+    params0 = init_actor_critic(
+        torch.Generator(device=dev).manual_seed(seed), pcfg, device=dev)
+    flat0, _ = flatten_params(params0)
+    dim = int(flat0.numel())
+
+    if topology is None:
+        cfg = multihop_cfg("olaf", seed=seed, **multihop_kw)
+    else:
+        cfg = resolve_sim_cfg(topology, seed=seed, **multihop_kw)
+    worker_params = {w.worker_id: params0 for w in cfg.workers}
+    worker_generators = {
+        w.worker_id: torch.Generator(device=dev).manual_seed(
+            seed * 7919 + w.worker_id) for w in cfg.workers}
+
+    def payload_source(now: float, worker_id: int):
+        params = worker_params[worker_id]
+        grads, mean_reward, _ = ppo.worker_iteration(
+            params, worker_generators[worker_id], env=env_obj, cfg=pcfg,
+            n_envs=n_envs)
+        # the worker keeps training locally while its update is in flight
+        worker_params[worker_id] = ppo.local_update(params, grads, local_lr)
+        flat, _ = flatten_params(grads)
+        return flat.cpu().numpy().astype(np.float32), float(mean_reward)
+
+    hyb, cfg = run_hybrid_multihop(dim, seed=seed,
+                                   payload_source=payload_source,
+                                   sim_cfg=cfg, sharded=sharded,
+                                   batched=batched,
+                                   flush_cadence=flush_cadence,
+                                   sim_impl=sim_impl, device=dev)
+    ps = ParameterServer(flat0.cpu().numpy(), ps_cfg or PSConfig())
+    for t, upd, row in hyb.delivered:  # deliveries -> reward-gated PS apply
+        ps.on_updates(t, row.cpu().numpy().astype(np.float32)[None],
+                      np.asarray([upd.reward]), np.asarray([upd.gen_time]),
+                      np.asarray([upd.agg_count]))
+    return hyb, ps, cfg
+
+
 def time_to_reward_speedup(cfg_base: AsyncTrainConfig, n_target: int,
                            device="cuda") -> Tuple[float, float, float]:
     """Fig. 7 metric: FIFO time / Olaf time to deliver n_target updates from

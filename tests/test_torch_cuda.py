@@ -10,8 +10,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.hybrid import run_hybrid_multihop  # noqa: E402
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
+                                              olaf_combine_plain)
+from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
+                                              olaf_enqueue_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain  # noqa: E402
 
 META_FIELDS = ("cluster", "worker", "seq", "agg_count", "replaceable",
@@ -80,3 +85,69 @@ def test_ops_launches_the_kernel_in_place(cuda_device):
     assert olaf_step_cuda.launches == before + 2
     assert st3.payload.data_ptr() == payload_ptr
     assert out["valid"].shape == (2,) and out["payload"].shape == (2, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,Q,U,D", [(3, 4, 16, 941), (21, 8, 64, 4099)])
+def test_combine_kernel_matches_plain(cuda_device, S, Q, U, D):
+    """Counts exact, slots within rtol=1e-5, atol=1e-6; out-of-range
+    cluster ids and zero gates are skipped; the kernel is deterministic."""
+    rng = np.random.default_rng(S + Q + U)
+    arrays = (rng.normal(size=(S, Q, D)).astype(np.float32),
+              rng.integers(0, 6, (S, Q)).astype(np.int32),
+              rng.normal(size=(S, U, D)).astype(np.float32),
+              rng.integers(-1, Q + 1, (S, U)).astype(np.int32),
+              rng.integers(0, 5, (S, U)).astype(np.int32))
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in arrays)
+    before = olaf_combine_cuda.launches
+    got = olaf_combine_cuda(*args)
+    again = ops.olaf_combine(*args)
+    want = olaf_combine_plain(*args)
+    torch.cuda.synchronize()
+    assert olaf_combine_cuda.launches == before + 2
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+def test_enqueue_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(5)
+    Q, U, D = 16, 24, 1031
+    st = queue_init(Q, D, device=cuda_device)
+    before = olaf_enqueue_cuda.launches
+    for trial in range(4):
+        args = tuple(a[0] for a in _burst(rng, 1, U, D, 2 * Q, float(trial),
+                                          cuda_device))
+        screen = torch.from_numpy(rng.random(U) < 0.2).to(cuda_device)
+        want = olaf_enqueue_plain(st, *args, 0.5, 12, screen)
+        got = olaf_enqueue_cuda(st.clone(), *args, 0.5, 12, screen)
+        torch.cuda.synchronize()
+        for f in META_FIELDS:
+            assert torch.equal(getattr(want, f), getattr(got, f)), f
+        torch.testing.assert_close(got.payload, want.payload, rtol=1e-5,
+                                   atol=1e-6)
+        st = want
+    assert olaf_enqueue_cuda.launches == before + 4
+    assert int(st.n_screened) > 0 and int(st.n_agg) > 0
+
+
+@pytest.mark.cuda
+def test_hybrid_backends_bitwise_on_the_card(cuda_device):
+    """The event and window replays land the same blocks in the same
+    launches, and the kernel sums without atomics: the same bits."""
+    kw = dict(seed=3, n_clusters_per_group=2, workers_per_cluster=2,
+              horizon=0.25, interval_s1=0.02, interval_s2=0.025,
+              x1_gbps=0.5e-3, x2_gbps=0.5e-3, sw3_gbps=0.8e-3,
+              size_bits=8192, sw12_slots=4, sw3_slots=4)
+    before = olaf_combine_cuda.launches
+    event, _ = run_hybrid_multihop(941, sim_impl="event", device=cuda_device,
+                                   **kw)
+    window, _ = run_hybrid_multihop(941, sim_impl="window",
+                                    device=cuda_device, **kw)
+    assert olaf_combine_cuda.launches - before == event.launches + window.launches
+    assert len(event.delivered) == len(window.delivered) > 0
+    for (t0, u0, p0), (t1, u1, p1) in zip(event.delivered, window.delivered):
+        assert t0 == t1 and u0.agg_count == u1.agg_count
+        assert p0.device.type == "cuda" and torch.equal(p0, p1)
+    np.testing.assert_array_equal(event.final_counts, window.final_counts)

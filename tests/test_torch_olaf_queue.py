@@ -260,3 +260,38 @@ def test_ops_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="screen is on meta.*more than one"):
         olaf_step_cuda(queue_init(4, D, device="cpu"), *burst, 2,
                        screen=torch.zeros(4, dtype=torch.bool, device="meta"))
+
+
+def test_nan_slot_reaches_only_its_drained_row_h9():
+    """H9: repro drains with a one-hot product, which spreads a NaN in one
+    queued slot (0·NaN) to every drained row; the port gathers, so only the
+    row that pops that slot is NaN. Every drained row finite in repro
+    equals the port's, and the port's NaN rows are a subset of repro's."""
+    rng = np.random.default_rng(21)
+    Q, k = 8, 4
+    st_j = jax_queue_init(Q, D)
+    st_j, _ = jax_olaf_step(st_j, *_jax(_rand_burst(rng, 6, 6, 3, 0.0)), 1)
+    fields = {f: np.array(v) for f, v in queue_state_to_numpy(
+        _cpu_state(st_j)).items()}
+    occupied = np.flatnonzero(fields["cluster"] >= 0)
+    assert len(occupied) >= 3
+    oldest = occupied[np.argsort(fields["seq"][occupied])]
+    fields["payload"][oldest[1], 3] = np.nan  # drained second of k
+    st_j = JaxQueueState(**{f: jnp.asarray(v) for f, v in fields.items()})
+    burst = _rand_burst(rng, 3, 12, 3, 1.0)
+    want = jax_olaf_step(st_j, *_jax(burst), k)
+    got = ops.olaf_step(_cpu_state(st_j), *_torch(burst), k=k)
+    w_rows = np.asarray(want[1]["payload"])
+    g_rows = got[1]["payload"].numpy()
+    w_nan = np.isnan(w_rows).any(-1)
+    g_nan = np.isnan(g_rows).any(-1)
+    assert (g_nan <= w_nan).all()
+    np.testing.assert_array_equal(np.flatnonzero(g_nan), [1])
+    assert w_nan.sum() > 1  # repro spread it to the other drained rows
+    np.testing.assert_allclose(w_rows[~w_nan], g_rows[~w_nan], rtol=1e-4,
+                               atol=1e-5)
+    for f in OUT_EXACT:
+        np.testing.assert_array_equal(np.asarray(want[1][f]),
+                                      got[1][f].numpy(), err_msg=f)
+    np.testing.assert_allclose(np.asarray(want[0].payload),
+                               got[0].payload.numpy(), rtol=1e-4, atol=1e-5)
