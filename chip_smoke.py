@@ -8,9 +8,13 @@ port's paths at the paper's model width, each with every launch count set
 to 0 just before it and read just after: the async-DRL trainer (every PS
 drain is one ``olaf_step`` kernel call), the hybrid multi-switch data plane
 fed by real PPO gradients (``run_hybrid_ppo``: every window lands through
-the ``olaf_combine`` kernel), the fat-tree scenario command, and the
-``ops.olaf_enqueue`` entry point (the ``olaf_enqueue`` kernel). It times
-the kernels and ends with one JSON line ``{"ok": true, "device": {...}}``.
+the ``olaf_combine`` kernel), the fat-tree scenario command, the
+``ops.olaf_enqueue`` entry point (the ``olaf_enqueue`` kernel), and LM
+serving of smollm-360m at full width and depth (``launch.serve.serve``
+under ``attn_impl="pallas"``: every prefill layer is one
+``flash_attention`` launch, every decode layer one ``decode_attention``
+call). It times the kernels and ends with one JSON line ``{"ok": true,
+"device": {...}}``.
 Any failed check raises and exits non-zero before that line. Without a
 CUDA card, or without the repository beside it, it fails.
 
@@ -28,20 +32,30 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import olaf_queue  # noqa: E402
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.core.txctl import TxControlConfig  # noqa: E402
 from repro_torch.core import hybrid, netsim  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,  # noqa: E402
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
+                                                 flash_attention_plain)
 from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
                                               olaf_combine_plain)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
                                               olaf_enqueue_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import api as lm_api  # noqa: E402
+from repro_torch.models import module as lm_module  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.optim.async_rules import ParameterServer  # noqa: E402
 from repro_torch.rl import ppo  # noqa: E402
 from repro_torch.rl.async_trainer import (AsyncDRLTrainer,  # noqa: E402
@@ -49,6 +63,7 @@ from repro_torch.rl.async_trainer import (AsyncDRLTrainer,  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-6  # kernel vs plain payloads: float association only
 META = ("cluster", "worker", "seq", "agg_count", "replaceable", "gen_time",
         "reward", "next_seq", "n_dropped", "n_agg", "n_repl", "n_screened")
@@ -306,7 +321,9 @@ def injected_payload_run(device):
 # launch counts: every path is driven with all of them at 0 and read after
 # ---------------------------------------------------------------------------
 COUNTED = {"olaf_step": olaf_step_cuda, "olaf_combine": olaf_combine_cuda,
-           "olaf_enqueue": olaf_enqueue_cuda}
+           "olaf_enqueue": olaf_enqueue_cuda,
+           "flash_attention": flash_attention_cuda,
+           "decode_attention": decode_attention_cuda}
 
 
 def reset_counts() -> None:
@@ -512,6 +529,310 @@ HYBRID_COUNTERS = ("launches", "combined_updates", "forward_launches",
                    "rerouted")
 
 
+# ---------------------------------------------------------------------------
+# flash_attention and decode_attention: kernel against plain, bound, SDPA
+# ---------------------------------------------------------------------------
+# kernel vs plain: float32 within float association; bf16 outputs within
+# about two bf16 ulps (each side rounds its float32 result once)
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+ATTN_DTYPES = (torch.bfloat16, torch.float32)
+# name: (BH, Sq, Sk, Dh, causal, window, q_offset)
+FLASH_SHAPES = {
+    "a": (120, 512, 512, 64, True, 0, 0),  # the smollm-360m prefill, B=8
+    "b": (120, 2048, 2048, 64, True, 0, 0),
+    "c": (16, 1000, 1000, 256, True, 128, 0),  # ragged, gemma's head dim
+    "d": (64, 256, 768, 128, True, 0, 512),
+}
+# name: (B, KV, rep, S, Dh, positions)
+DECODE_SHAPES = {
+    "a": (8, 5, 3, 552, 64, "spread"),  # the serve cache, rows at 0..551
+    "b": (8, 5, 3, 32768, 64, "end"),  # the decode_32k length
+    "c": (4, 1, 8, 1000, 256, "random"),
+}
+PLAIN_SCORE_BYTES = 2**30  # the plain flash runs over BH in slices this big
+
+
+def peak_ops(dtype) -> float:
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+
+
+def attn_bound_ms(nbytes: int, nops: int, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / peak_ops(dtype) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_inputs(gen, dev, shape, dtype):
+    BH, Sq, Sk, Dh = shape[:4]
+    return tuple(torch.randn((BH, S, Dh), generator=gen, device=dev).to(dtype)
+                 for S in (Sq, Sk, Sk))
+
+
+def flash_kw(shape):
+    return dict(causal=shape[4], window=shape[5], q_offset=shape[6])
+
+
+def flash_plain_sliced(q, k, v, **kw):
+    """The plain version over slices of BH, so its dense scores fit."""
+    per = max(1, PLAIN_SCORE_BYTES // (4 * q.shape[1] * k.shape[1]))
+    return torch.cat([flash_attention_plain(q[i:i + per], k[i:i + per],
+                                            v[i:i + per], **kw)
+                      for i in range(0, q.shape[0], per)])
+
+
+def flash_cost(shape, itemsize: int):
+    """(bytes, operations) of one call: q rows with a live key read once,
+    every output row written once, key/value rows live for some query read
+    once; 4·Dh operations per live (query, key) pair."""
+    BH, Sq, Sk, Dh, causal, window, q_offset = shape
+    qpos = np.arange(Sq) + q_offset
+    hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq, np.int64)
+    n = np.maximum(hi - lo + 1, 0)
+    edges = np.zeros(Sk + 1, np.int64)
+    np.add.at(edges, lo[n > 0], 1)
+    np.add.at(edges, hi[n > 0] + 1, -1)
+    k_live = int((np.cumsum(edges)[:Sk] > 0).sum())
+    nbytes = itemsize * Dh * BH * (int((n > 0).sum()) + Sq + 2 * k_live)
+    return nbytes, 4 * Dh * BH * int(n.sum())
+
+
+def flash_library(q, k, v, shape):
+    """``F.scaled_dot_product_attention`` on the same inputs, seen as (1,
+    BH, S, Dh) (its fused backends take four dimensions): ``is_causal`` for
+    a plain causal mask, else the boolean mask (True = attend)."""
+    _, Sq, Sk, _, causal, window, q_offset = shape
+    q, k, v = q[None], k[None], v[None]
+    if causal and not window and not q_offset and Sq == Sk:
+        return lambda _: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return lambda _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def decode_inputs(gen, dev, shape, dtype):
+    B, KV, rep, S, Dh, rule = shape
+    q = torch.randn((B, KV, rep, Dh), generator=gen, device=dev).to(dtype)
+    kc, vc = (torch.randn((B, S, KV, Dh), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    if rule == "spread":
+        pos = torch.linspace(0, S - 1, B, device=dev).round()
+    elif rule == "end":
+        pos = S - 1 - torch.arange(B, device=dev)
+    else:
+        pos = torch.randint(0, S, (B,), generator=gen, device=dev)
+    return q, kc, vc, pos.to(torch.int32)
+
+
+def decode_cost(shape, pos, itemsize: int):
+    """(bytes, operations): the q row, the k/v rows at positions <= pos and
+    the output, each once; 4·Dh operations per (head, live position)."""
+    B, KV, rep, S, Dh, _ = shape
+    rows = int(torch.clamp(pos.to(torch.int64) + 1, max=S).sum())
+    nbytes = itemsize * (2 * B * KV * rep * Dh + 2 * rows * KV * Dh)
+    return nbytes, 4 * Dh * KV * rep * rows
+
+
+def decode_library(q, kc, vc, pos):
+    """SDPA with ``enable_gqa`` over the caches' (B, KV, S, Dh) views and a
+    (B, 1, 1, S) mask of the positions <= pos."""
+    B, KV, rep, Dh = q.shape
+    qh = q.reshape(B, KV * rep, 1, Dh)
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(kc.shape[1], device=q.device)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    return lambda _: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
+                                                    enable_gqa=True)
+
+
+def check_attention(dev, gen):
+    """Every flash and decode shape in both dtypes: kernel against plain.
+    Returns {(kind, name, dtype): (max |err|, inputs)}."""
+    out = {}
+    for name, shape in FLASH_SHAPES.items():
+        for dtype in ATTN_DTYPES:
+            q, k, v = flash_inputs(gen, dev, shape, dtype)
+            got = flash_attention_cuda(q, k, v, **flash_kw(shape))
+            want = flash_plain_sliced(q, k, v, **flash_kw(shape))
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = ATTN_TOL[dtype]
+            require(bool(torch.isfinite(got).all()), f"flash {name}: non-finite")
+            require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                    f"flash {name} {dtype}: off by {err}")
+            log(f"[check] flash_attention {name} {str(dtype)[6:]}: "
+                f"BH={shape[0]} Sq={shape[1]} Sk={shape[2]} Dh={shape[3]} "
+                f"causal={shape[4]} window={shape[5]} q_offset={shape[6]} "
+                f"matches (max |err| {err:.3g}, tolerance {tol})")
+            out[("flash", name, dtype)] = (err, (q, k, v))
+    for name, shape in DECODE_SHAPES.items():
+        for dtype in ATTN_DTYPES:
+            q, kc, vc, pos = decode_inputs(gen, dev, shape, dtype)
+            got = decode_attention_cuda(q, kc, vc, pos)
+            want = decode_attention_plain(q, kc, vc, pos)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = ATTN_TOL[dtype]
+            require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                    f"decode {name} {dtype}: off by {err}")
+            log(f"[check] decode_attention {name} {str(dtype)[6:]}: "
+                f"B={shape[0]} KV={shape[1]} rep={shape[2]} S={shape[3]} "
+                f"Dh={shape[4]} pos {pos.tolist()} matches (max |err| "
+                f"{err:.3g}, tolerance {tol})")
+            out[("decode", name, dtype)] = (err, (q, kc, vc, pos))
+    return out
+
+
+def time_attention(checked, reps: int):
+    """Kernel, plain, SDPA and the kernel again for every checked input;
+    the bound from this run's inputs."""
+    rows = {}
+    for (kind, name, dtype), (err, x) in checked.items():
+        itemsize = torch.finfo(dtype).bits // 8
+        if kind == "flash":
+            shape = FLASH_SHAPES[name]
+            kw = flash_kw(shape)
+            kernel_fn = lambda _: flash_attention_cuda(*x, **kw)  # noqa: E731
+            plain_fn = lambda _: flash_plain_sliced(*x, **kw)  # noqa: E731
+            library_fn = flash_library(*x, shape)
+            nbytes, nops = flash_cost(shape, itemsize)
+        else:
+            shape = DECODE_SHAPES[name]
+            kernel_fn = lambda _: decode_attention_cuda(*x)  # noqa: E731
+            plain_fn = lambda _: decode_attention_plain(*x)  # noqa: E731
+            library_fn = decode_library(*x)
+            nbytes, nops = decode_cost(shape, x[3], itemsize)
+        kernel = time_ms(kernel_fn, lambda: None, reps)
+        plain = time_ms(plain_fn, lambda: None, max(2, reps // 4))
+        library = time_ms(library_fn, lambda: None, reps)
+        kernel2 = time_ms(kernel_fn, lambda: None, reps)
+        bound, by = attn_bound_ms(nbytes, nops, dtype)
+        rows[(kind, name, dtype)] = dict(
+            dtype=str(dtype)[6:], ms=min(kernel, kernel2),
+            ms_runs=[kernel, kernel2], plain_ms=plain, library_ms=library,
+            bound_ms=bound, bound_by=by, bytes=nbytes, ops=nops,
+            max_abs_err=err)
+        log(f"[time] {kind}_attention {name} {str(dtype)[6:]}: kernel "
+            f"{min(kernel, kernel2):.4f} ms (runs {kernel:.4f}, {kernel2:.4f}) "
+            f"plain {plain:.4f} ms SDPA {library:.4f} ms bound {bound:.6f} ms "
+            f"({by}: {nbytes} B, {nops} operations)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the serve path: smollm-360m at full width and depth
+# ---------------------------------------------------------------------------
+SERVE = dict(arch="smollm-360m", batch=8, prompt_len=512, gen=32, seed=0)
+SERVE_TOL = 1e-3  # float32 kernel route against the plain route, logits
+
+
+def serve_cfg(**kw):
+    return dataclasses.replace(get_config(SERVE["arch"]), **kw)
+
+
+def serve_run(cfg, params, dev):
+    return launch_serve.serve(cfg, batch=SERVE["batch"],
+                              prompt_len=SERVE["prompt_len"], gen=SERVE["gen"],
+                              temperature=0.0, seed=SERVE["seed"], device=dev,
+                              params=params)
+
+
+def teacher_forced_logits(params, cfg, tokens, dev):
+    """Prefill logits, then the logits of every decode step fed ``tokens``
+    (the served run's picks) at the served positions."""
+    B, P, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    prompt = torch.as_tensor(np.random.default_rng(SERVE["seed"]).integers(
+        0, cfg.vocab, (B, P)), dtype=torch.int32, device=dev)
+    out = []
+    with torch.inference_mode():
+        logits, caches = lm.lm_prefill(params, prompt, cfg)
+        out.append(logits[:, -1])
+        caches = lm_module.tree_map(launch_serve._grow, lm_api.make_caches(
+            cfg, B, P + gen + 8, device=dev), caches)
+        for i in range(gen):
+            tok = torch.as_tensor(tokens[:, i], device=dev)
+            pos = torch.full((B,), P + i, dtype=torch.int32, device=dev)
+            logits, caches = lm.lm_decode_step(params, caches, tok, pos, cfg)
+            out.append(logits)
+    return torch.stack(out)  # (gen + 1, B, V)
+
+
+def serve_phase(dev) -> dict:
+    """``launch.serve.serve`` at full width and depth under
+    ``attn_impl="pallas"``, counted from 0; a profiled repeat for the idle
+    share; the float32 kernel route against the plain route. Returns the
+    launch counts of the counted run."""
+    cfg_s = serve_cfg(attn_impl="pallas")
+    B_s, P_s, gen_s = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    params_s = lm_api.init_model(
+        torch.Generator(dev).manual_seed(SERVE["seed"]), cfg_s)
+    serve_run(cfg_s, params_s, dev)  # warm-up: cuBLAS handles, allocator
+    reset_counts()
+    served = serve_run(cfg_s, params_s, dev)
+    serve_counts = read_counts()
+    toks = served.tokens
+    log(f"[serve] {cfg_s.name} {cfg_s.n_layers} layers d_model={cfg_s.d_model} "
+        f"heads={cfg_s.n_heads}/{cfg_s.n_kv_heads} head_dim={cfg_s.hd} "
+        f"vocab={cfg_s.vocab} {cfg_s.dtype} "
+        f"({lm_module.count_params(params_s)} parameters, seeded random), "
+        f"attn_impl=pallas, B={B_s} P={P_s} gen={gen_s} greedy: "
+        f"{served.summary()}; prefill {served.prefill_s * 1e3:.3f} ms, decode "
+        f"{served.decode_s / gen_s * 1e3:.4f} ms/token, "
+        f"{B_s * gen_s / served.decode_s:.1f} tok/s; launch counts "
+        f"{serve_counts}; tokens[0][:8] {toks[0][:8].tolist()}")
+    require(serve_counts["flash_attention"] == cfg_s.n_layers,
+            f"serve: {serve_counts['flash_attention']} flash launches, one per "
+            f"prefill layer expected ({cfg_s.n_layers})")
+    require(serve_counts["decode_attention"] == cfg_s.n_layers * gen_s,
+            f"serve: {serve_counts['decode_attention']} decode calls, "
+            f"{cfg_s.n_layers} x {gen_s} expected")
+    require(toks.shape == (B_s, gen_s + 1) and toks.min() >= 0
+            and toks.max() < cfg_s.vocab, "serve: tokens out of range")
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        serve_run(cfg_s, params_s, dev)
+        torch.cuda.synchronize()
+    wall_sp = time.perf_counter() - t0
+    kernels_s = device_kernels(prof)
+    busy_s = sum(us for _, us in kernels_s.values()) / 1e6
+    if busy_s:
+        fl_us = sum(us for n, (_, us) in kernels_s.items() if "flash_kernel" in n)
+        dec_us = sum(us for n, (_, us) in kernels_s.items() if "decode_" in n)
+        top = sorted(kernels_s.items(), key=lambda kv: -kv[1][1])[:6]
+        log(f"[serve] profiled repeat: device busy {busy_s:.4f} s in "
+            f"{sum(n for n, _ in kernels_s.values())} device events over "
+            f"{wall_sp:.3f} s wall: idle share {100 * (1 - busy_s / wall_sp):.2f}%; "
+            f"flash_kernel {fl_us / 1e3:.4f} ms, decode_partial + "
+            f"decode_combine {dec_us / 1e3:.4f} ms; the largest: " + "; ".join(
+                f"{n[:60]} x{c} {us / 1e3:.3f} ms" for n, (c, us) in top))
+    else:
+        log("[serve] device busy: not measured (the profiler recorded no "
+            "device events)")
+    # the kernel route against the plain route, float32, teacher-forced
+    p32 = lm_module.cast_tree(params_s, torch.float32)
+    got = teacher_forced_logits(p32, serve_cfg(dtype="float32",
+                                               attn_impl="pallas"), toks, dev)
+    want = teacher_forced_logits(p32, serve_cfg(dtype="float32",
+                                                attn_impl="full"), toks, dev)
+    torch.cuda.synchronize()
+    route_err = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    require(bool(torch.isfinite(got).all()), "serve f32: non-finite logits")
+    require(torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL),
+            f"serve f32: kernel route off the plain route by {max(route_err)} "
+            f"(per step {route_err})")
+    log(f"[serve] float32 kernel route (pallas) vs plain route (full), "
+        f"teacher-forced on the served tokens: prefill logits max |err| "
+        f"{route_err[0]:.3g}, {gen_s} decode steps max |err| "
+        f"{max(route_err[1:]):.3g} (tolerance {SERVE_TOL})")
+    return serve_counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. the card ------------------------------------------------------
@@ -534,7 +855,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "smem",
+                                       "spill")):
                 log(f"[build] {name}: {line.strip()}")
 
     # ---- 3. every kernel against its plain version ------------------------
@@ -572,6 +894,8 @@ def main() -> int:
                                             2**20 + 3, 2, capacity=48,
                                             thr=0.5, screen_p=0.1)
     enq_err = max(enq_err_a, enq_err_b)
+    # flash_attention and decode_attention at every listed shape, bf16 and f32
+    attn_checked = check_attention(dev, gen)
 
     # ---- 4. the main path: the trainer at the paper's model width ---------
     cfg = trainer_cfg()
@@ -805,6 +1129,9 @@ def main() -> int:
         f"n_screened={int(st_card.n_screened)}), launch counts "
         f"{enqueue_counts}")
 
+    # ---- 4e. LM serving: smollm-360m at full width and depth ---------------
+    serve_counts = serve_phase(dev)
+
     # ---- 5. timing ---------------------------------------------------------
     t_a = time_shape(pre_a2, b_a2, reps=50)
     t_a8 = time_shape(pre_a8, b_a8, reps=50)
@@ -834,9 +1161,11 @@ def main() -> int:
             f"plain {t['plain_ms']:.4f} ms bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}, {t['bytes']} B; the kernel moves "
             f"{t['kernel_bytes']} B)")
+    attn_times = time_attention(attn_checked, reps=10)
     log(f"[time] total smoke wall {time.perf_counter() - t_start:.1f} s")
     paths = dict(trainer=trainer_counts, hybrid_ppo=hybrid_counts,
-                 scenario=scenario_counts, enqueue=enqueue_counts)
+                 scenario=scenario_counts, enqueue=enqueue_counts,
+                 serve=serve_counts)
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -892,9 +1221,39 @@ def main() -> int:
             k: t_eb[k] for k in ("ms", "plain_ms", "bound_ms", "bytes",
                                  "kernel_bytes")}),
         launches_by_path=by_path("olaf_enqueue"))
+
+    def attn_entry(kind, source, replaces, launches_per_call, head_shape):
+        name = f"{kind}_attention"
+        head = attn_times[(kind, "a", torch.bfloat16)]
+        errs = {dt: max(r["max_abs_err"] for (k, _, d), r in attn_times.items()
+                        if k == kind and d == dt) for dt in ATTN_DTYPES}
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=serve_counts[name], max_abs_err=max(errs.values()),
+            max_abs_err_f32=errs[torch.float32],
+            max_abs_err_bf16=errs[torch.bfloat16], ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            library_call="torch.nn.functional.scaled_dot_product_attention",
+            bytes=head["bytes"], ops=head["ops"],
+            cuda_launches_per_call=launches_per_call, shape=head_shape,
+            shapes={f"{n} {r['dtype']}": {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bytes", "ops", "max_abs_err")}
+                for (k, n, _), r in attn_times.items() if k == kind},
+            launches_by_path=by_path(name))
+
+    flash_entry = attn_entry(
+        "flash", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:83", 1,
+        "BH=120 Sq=Sk=512 Dh=64 causal bf16 (the smollm-360m prefill, B=8)")
+    decode_entry = attn_entry(
+        "decode", "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:68", 2,
+        "B=8 KV=5 rep=3 S=552 Dh=64 bf16, pos 0..551 (the serve cache)")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry]}),
-          flush=True)
+    print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry,
+                                  flash_entry, decode_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

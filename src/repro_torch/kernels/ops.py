@@ -2,7 +2,8 @@
 
 The counterparts of ``repro.kernels.ops``'s ``olaf_combine``,
 ``olaf_combine_multi``, ``olaf_combine_window``, ``olaf_forward``,
-``olaf_enqueue`` and ``olaf_step``, without the TPU tiling arguments. CUDA
+``olaf_enqueue``, ``olaf_step``, ``flash_attention`` and
+``decode_attention``, without the TPU tiling arguments. CUDA
 operands launch the hand-written kernel; CPU operands take the kernel's
 plain PyTorch version. Any other device, or operands spread over more than
 one device, raises: there is no fallback from one to the other.
@@ -16,6 +17,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.olaf_queue import TorchQueueState, expire_inactive_drains
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,
                                               olaf_combine_plain)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,
@@ -171,3 +176,32 @@ def olaf_step(state: TorchQueueState, clusters, workers, gen_times, rewards,
     if active_workers is not None:
         out = expire_inactive_drains(out, active_workers)
     return state, out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Flash attention in the model's (B, S, H, Dh) layout (kv already
+    expanded to H heads): the counterpart of ``repro.kernels.ops.
+    flash_attention``. Heads are folded into the batch, (B·H, S, Dh), for
+    the kernel and unfolded after."""
+    dev = _device_of(q, k, v, op="flash_attention")
+    fn = _route("flash_attention", dev, flash_attention_cuda,
+                flash_attention_plain)
+    B, Sq, H, Dh = q.shape
+
+    def fold(x):  # a copy: the kernel reads contiguous (B·H, S, Dh) rows
+        return x.permute(0, 2, 1, 3).reshape(B * H, x.shape[1], Dh).contiguous()
+
+    out = fn(fold(q), fold(k), fold(v), causal=causal, window=window,
+             q_offset=q_offset)
+    return out.reshape(B, H, Sq, Dh).permute(0, 2, 1, 3)
+
+
+def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
+    """GQA decode attention: q (B, KV, rep, Dh) against the unexpanded
+    caches (B, S, KV, Dh), pos (B,) int32 -> (B, KV, rep, Dh). The
+    counterpart of ``repro.kernels.ops.decode_attention``."""
+    dev = _device_of(q, k_cache, v_cache, pos, op="decode_attention")
+    fn = _route("decode_attention", dev, decode_attention_cuda,
+                decode_attention_plain)
+    return fn(q, k_cache, v_cache, pos)

@@ -77,8 +77,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mode != "scenario":
         ap.error(f"--mode {args.mode} is not ported yet: the LM trainer "
-                 f"modes come with the LM-substrate slice (ROADMAP queue 1 "
-                 f"item 7); use --mode scenario")
+                 f"modes come with the LM-substrate slice's training on "
+                 f"lm_loss (ROADMAP queue 1 item 7c); use --mode scenario")
     if args.sim_impl == "vectorized":
         ap.error("--sim-impl vectorized is not ported yet: it comes with the "
                  "vecsim slice (ROADMAP queue 1 item 4); use event or window")

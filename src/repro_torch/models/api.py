@@ -1,0 +1,40 @@
+"""Model API for the dense family: the counterpart of ``repro.models.api``.
+
+Entry points keyed by the shape kind, with ``repro``'s batch dicts:
+``forward(params, {"tokens"})``, ``prefill(params, {"tokens"})`` and
+``decode_step(params, caches, {"token", "pos"})`` (which updates the caches
+in place). ``param_spec``, ``cache_spec`` and ``input_specs`` come with the
+tooling slice (ROADMAP queue 1 item 8); the other families with item 7a.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as TF
+
+Params = Dict[str, Any]
+
+
+def init_model(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """Random weights drawn from ``gen``, on ``gen``'s device."""
+    return TF.init_lm(gen, cfg)
+
+
+def forward(params, batch, cfg: ArchConfig) -> torch.Tensor:
+    return TF.lm_forward(params, batch["tokens"], cfg)
+
+
+def prefill(params, batch, cfg: ArchConfig):
+    return TF.lm_prefill(params, batch["tokens"], cfg)
+
+
+def decode_step(params, caches, batch, cfg: ArchConfig):
+    return TF.lm_decode_step(params, caches, batch["token"], batch["pos"], cfg)
+
+
+def make_caches(cfg: ArchConfig, batch: int, cache_len: int, *,
+                device) -> Params:
+    return TF.init_caches(cfg, batch, cache_len, device=device)

@@ -1,0 +1,322 @@
+"""Transformer layer library: norms, RoPE, GQA/MQA attention, gated MLPs.
+
+The counterpart of ``repro.models.layers``, function for function, with
+``repro``'s layouts and cast points. Attention is computed in the
+full-head layout (B, S, H, Dh) with KV heads expanded by a static gather
+(GQA repeat). Strategies:
+
+  * ``full``     — one einsum + softmax;
+  * ``chunked``  — flash-style online softmax over KV blocks with causal
+                   block skipping (forward only);
+  * ``pallas``   — the hand-written flash kernel through
+                   :func:`repro_torch.kernels.ops.flash_attention` (the
+                   plain version on the CPU);
+  * ``decode``   — single-query attention against a KV cache.
+
+``repro`` annotates activations with sharding constraints; on one device
+they are the identity and the port leaves them out (activation sharding
+comes with ROADMAP queue 1 item 8). All softmax/normalization accumulation
+is float32 whatever the activation dtype.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.module import dense_init, normal
+
+
+# --------------------------------------------------------------------------
+# Norms (reduction in float32, the elementwise multiply in the input dtype,
+# as ``repro``)
+# --------------------------------------------------------------------------
+def init_rmsnorm(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return x * inv.to(x.dtype) * p["scale"]
+
+
+def init_layernorm(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    out = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    return out * p["scale"] + p["bias"]
+
+
+def apply_norm(kind: str, p, x):
+    return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
+
+
+def init_norm(kind: str, d: int, dtype, device):
+    return (init_rmsnorm(d, dtype, device) if kind == "rmsnorm"
+            else init_layernorm(d, dtype, device))
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings (llama half-split; ``rotary_dim`` < head_dim
+# gives the partial/2d rotary used by ChatGLM)
+# --------------------------------------------------------------------------
+def rope_freqs(head_dim: int, rotary_dim: int, theta: float) -> np.ndarray:
+    dim = rotary_dim // 2
+    return 1.0 / (theta ** (np.arange(0, dim, dtype=np.float32) * 2.0 / rotary_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _on_device(fn, *args, device) -> torch.Tensor:
+    """``torch.from_numpy(fn(*args))`` on ``device``, made once: a copy from
+    the host on every call would stall the host on the card's queue."""
+    return torch.from_numpy(fn(*args)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotary_dim: Optional[int] = None) -> torch.Tensor:
+    """x: (B, S, ..., Dh); positions: (B, S) or (S,)."""
+    dh = x.shape[-1]
+    rd = rotary_dim or dh
+    freqs = _on_device(rope_freqs, dh, rd, theta, device=x.device)
+    pos = positions.to(torch.float32)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    angles = pos[..., None] * freqs  # (B, S, rd/2)
+    for _ in range(x.dim() - 3):
+        angles = angles[:, :, None]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x_rot, x_pass = x[..., :rd], x[..., rd:]
+    x1, x2 = x_rot[..., : rd // 2], x_rot[..., rd // 2:]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    return torch.cat([r1.to(x.dtype), r2.to(x.dtype), x_pass], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+def init_attention(gen: torch.Generator, cfg, dtype):
+    """Q/O padded to cfg.padded_heads (zero rows keep the math exact)."""
+    d, H, Hp, KV, Dh = (cfg.d_model, cfg.n_heads, cfg.padded_heads,
+                        cfg.n_kv_heads, cfg.hd)
+    wq = dense_init(gen, d, (H, Dh), dtype)
+    wk = dense_init(gen, d, (KV, Dh), dtype)
+    wv = dense_init(gen, d, (KV, Dh), dtype)
+    wo = normal(gen, (H, Dh, d), 1.0 / math.sqrt(H * Dh), dtype)
+    if Hp != H:
+        wq = torch.cat([wq, wq.new_zeros((d, Hp - H, Dh))], dim=1)
+        wo = torch.cat([wo, wo.new_zeros((Hp - H, Dh, d))], dim=0)
+    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+
+
+def qkv(p, x):
+    """Project to q:(B,S,Hp,Dh) and unexpanded k/v:(B,S,KV,Dh)."""
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    k = torch.einsum("bsd,dke->bske", x, p["wk"])
+    v = torch.einsum("bsd,dke->bske", x, p["wv"])
+    return q, k, v
+
+
+def expand_kv(k: torch.Tensor, cfg) -> torch.Tensor:
+    """(B,S,KV,Dh) -> (B,S,Hp,Dh) static GQA gather (padded heads map to
+    their group's kv head; their q rows are zero)."""
+    return k.index_select(2, _on_device(cfg.kv_head_map, device=k.device))
+
+
+def out_proj(p, ctx):
+    """ctx: (B,S,Hp,Dh) -> (B,S,d)."""
+    return torch.einsum("bshe,hed->bsd", ctx, p["wo"])
+
+
+def _mask(Sq: int, Sk: int, *, causal: bool, window: int, q_offset: int,
+          device) -> torch.Tensor:
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def full_attention(q, k, v, *, causal: bool, window: int = 0,
+                   q_offset: int = 0) -> torch.Tensor:
+    """Dense-scores attention; q,k,v: (B,S,H,Dh) (kv pre-expanded). The
+    scores round through the input dtype before the float32 softmax, and p
+    is cast back to it before PV, as ``repro`` (hazard H11); a fully masked
+    row is NaN, as ``repro`` (H12)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32) * scale
+    mask = _mask(q.shape[1], k.shape[1], causal=causal, window=window,
+                 q_offset=q_offset, device=q.device)
+    s = s.masked_fill(~mask, -math.inf)
+    p_attn = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p_attn, v)
+
+
+def _flash_block(q_blk, k_blk, v_blk, carry, q_lo, k_lo, causal, window,
+                 scale, k_valid):
+    """One online-softmax block update (``repro``'s ``_flash_block``)."""
+    m, l, acc = carry
+    s = torch.einsum("bqhd,bshd->bhqs", q_blk, k_blk).to(torch.float32) * scale
+    mask = _mask(q_blk.shape[1], k_blk.shape[1], causal=causal,
+                 window=window, q_offset=q_lo - k_lo, device=q_blk.device)
+    if k_valid is not None:
+        kpos = k_lo + torch.arange(k_blk.shape[1], device=q_blk.device)
+        mask &= (kpos < k_valid)[None, :]  # padded keys
+    s = s.masked_fill(~mask, -math.inf)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+    p = torch.exp(s - m_safe[..., None]).masked_fill(~mask, 0.0)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                       torch.zeros_like(m))
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bhqs,bshd->bhqd", p.to(v_blk.dtype), v_blk).to(torch.float32)
+    return m_new, l_new, acc_new
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_chunk: int = 1024, k_chunk: int = 1024,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Flash-style attention over KV chunks with causal block skipping
+    (forward only: ``repro``'s ``unroll=True`` form, with static skipping)."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    q_chunk, k_chunk = min(q_chunk, Sq), min(k_chunk, Sk)
+    Sq_pad = -(-Sq // q_chunk) * q_chunk
+    Sk_pad = -(-Sk // k_chunk) * k_chunk
+    # padded keys sit at positions >= Sk (masked); padded query rows are
+    # sliced off at the end
+    q = F.pad(q, (0, 0, 0, 0, 0, Sq_pad - Sq))
+    k = F.pad(k, (0, 0, 0, 0, 0, Sk_pad - Sk))
+    v = F.pad(v, (0, 0, 0, 0, 0, Sk_pad - Sk))
+    nk = Sk_pad // k_chunk
+    scale = 1.0 / math.sqrt(Dh)
+    k_valid = None if Sk_pad == Sk else Sk
+    outs = []
+    for qi in range(Sq_pad // q_chunk):
+        q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        q_lo = qi * q_chunk + q_offset
+        hi = min((q_lo + q_chunk + k_chunk - 1) // k_chunk, nk) if causal else nk
+        lo = max((q_lo - window + 1) // k_chunk, 0) if window else 0
+        carry = (torch.full((B, H, q_chunk), -math.inf, device=q.device),
+                 torch.zeros((B, H, q_chunk), device=q.device),
+                 torch.zeros((B, H, q_chunk, Dh), device=q.device))
+        for j in range(lo, hi):
+            sl = slice(j * k_chunk, (j + 1) * k_chunk)
+            carry = _flash_block(q_blk, k[:, sl], v[:, sl], carry, q_lo,
+                                 j * k_chunk, causal, window, scale, k_valid)
+        _, l, acc = carry
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=2)[:, :, :Sq]  # (B,H,Sq,Dh)
+    return out.permute(0, 2, 1, 3)
+
+
+def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
+    """Single-token attention. q: (B,1,H,Dh); caches (B,S,H,Dh) expanded;
+    pos: (B,). Entries at positions > pos are masked."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bshd->bhqs", q, k_cache).to(torch.float32) * scale
+    S = k_cache.shape[1]
+    mask = torch.arange(S, device=q.device)[None, :] <= pos[:, None]  # (B,S)
+    s = s.masked_fill(~mask[:, None, None, :], -math.inf)
+    p_attn = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p_attn, v_cache)
+
+
+def attention_any(q, k, v, *, causal: bool, window: int = 0,
+                  impl: str = "auto", q_offset: int = 0,
+                  chunk: int = 1024) -> torch.Tensor:
+    if impl == "auto":
+        impl = "chunked" if max(q.shape[1], k.shape[1]) > 2048 else "full"
+    if impl == "pallas":
+        from repro_torch.kernels import ops as KOPS
+        return KOPS.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    if impl == "full":
+        return full_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 q_chunk=chunk, k_chunk=chunk,
+                                 q_offset=q_offset)
+    raise ValueError(f"unknown attn_impl {impl!r}: use auto, full, chunked "
+                     f"or pallas")
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str, dtype):
+    if act in ("silu", "geglu"):  # gated: gate + up + down
+        return {"wg": dense_init(gen, d_model, (d_ff,), dtype),
+                "wu": dense_init(gen, d_model, (d_ff,), dtype),
+                "wd": dense_init(gen, d_ff, (d_model,), dtype)}
+    return {"w1": dense_init(gen, d_model, (d_ff,), dtype),
+            "w2": dense_init(gen, d_ff, (d_model,), dtype)}
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def apply_mlp(p, x, act: str):
+    if act in ("silu", "geglu"):
+        g = torch.einsum("bsd,df->bsf", x, p["wg"])
+        u = torch.einsum("bsd,df->bsf", x, p["wu"])
+        g = F.silu(g) if act == "silu" else _gelu(g)
+        return torch.einsum("bsf,fd->bsd", g * u, p["wd"])
+    h = _gelu(torch.einsum("bsd,df->bsf", x, p["w1"]))
+    return torch.einsum("bsf,fd->bsd", h, p["w2"])
+
+
+# --------------------------------------------------------------------------
+# Embedding / unembedding
+# --------------------------------------------------------------------------
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype,
+                   tie: bool):
+    # GPT-style 0.02 std keeps tied-unembed logits O(1) at init
+    p = {"embed": normal(gen, (vocab, d_model), 0.02, dtype)}
+    if not tie:
+        p["unembed"] = dense_init(gen, d_model, (vocab,), dtype)
+    return p
+
+
+def embed(p, tokens, scale_by_dim: bool = False):
+    x = p["embed"][tokens]
+    if scale_by_dim:  # sqrt(d) rounded to x's dtype first, as ``repro``
+        x = x * torch.tensor(np.sqrt(x.shape[-1]), dtype=x.dtype).item()
+    return x
+
+
+def unembed(p, x, true_vocab: Optional[int] = None):
+    if "unembed" in p:
+        logits = torch.einsum("bsd,dv->bsv", x, p["unembed"])
+    else:
+        logits = torch.einsum("bsd,vd->bsv", x, p["embed"])
+    if true_vocab is not None and logits.shape[-1] != true_vocab:
+        logits = logits.clone()
+        logits[..., true_vocab:] = -1e9
+    return logits
+
+
+def cross_entropy(logits, labels):
+    """Mean of logsumexp − the label's logit, in float32."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    label_logit = lf.gather(-1, labels[..., None].to(torch.int64))[..., 0]
+    return (lse - label_logit).mean()

@@ -1,0 +1,90 @@
+"""Minimal functional parameter helpers: the counterpart of ``repro.models.module``.
+
+Params are plain nested dicts of tensors; a layer stack stores its params
+with a leading ``L`` axis, as ``repro`` does, so a checkpoint of one
+package maps key for key onto the other. ``repro`` scans over that axis;
+the port loops over it in Python (:func:`run_periods`), with no remat:
+serving needs neither.
+
+Draws come from a ``torch.Generator`` with ``repro``'s distributions; the
+bits differ from ``jax.random``'s (ROADMAP hazard H3), so parity tests
+carry ``repro``'s weights across with ``transformer.params_from_jax``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+Params = Dict[str, Any]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """``std`` · N(0, 1) drawn in float32 on ``gen``'s device, then cast."""
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (std * x).to(dtype)
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype,
+               std: Optional[float] = None) -> torch.Tensor:
+    """Weight of shape (in_dim, *out_shape), fan-in scaled."""
+    if std is None:
+        std = 1.0 / math.sqrt(in_dim)
+    shape = (in_dim,) + tuple(np.atleast_1d(out_shape).tolist())
+    return normal(gen, shape, std, dtype)
+
+
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the leaves of nested dicts and tuples of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def run_periods(body: Callable, carry, stacked_params: Params):
+    """Loop ``body(carry, period_params) -> (carry, out)`` over the leading
+    axis of ``stacked_params`` (a dict, or a tuple of dicts sliced
+    together). Returns ``(carry, outs)`` with ``outs`` stacked on a new
+    leading axis, or ``None`` when the body returns ``None``."""
+    leaves = list(tree_paths(stacked_params).values())
+    n = leaves[0].shape[0] if leaves else 0
+    ys = []
+    for i in range(n):
+        carry, y = body(carry, tree_map(lambda x: x[i], stacked_params))
+        ys.append(y)
+    if not ys or ys[0] is None:
+        return carry, None
+    return carry, tree_map(lambda *xs: torch.stack(xs), *ys)
+
+
+def count_params(params: Params) -> int:
+    return sum(int(np.prod(x.shape)) for x in tree_paths(params).values())
+
+
+def tree_paths(params, prefix: str = "") -> Dict[str, Any]:
+    """Flatten params to a {'a/b/c': leaf} path map; a tuple's items are
+    keyed by their index."""
+    items = (params.items() if isinstance(params, dict)
+             else enumerate(params) if isinstance(params, tuple) else None)
+    if items is None:
+        return {prefix: params}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(tree_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def cast_tree(params: Params, dtype: torch.dtype) -> Params:
+    """Every floating leaf cast to ``dtype`` (a new tree; the rest as is)."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)

@@ -1,0 +1,339 @@
+"""Decoder-only LM of the dense family: the counterpart of
+``repro.models.transformer`` for the ``attn`` layer kind.
+
+Layers are grouped into repeating periods (dense: period 1, ``["attn"]``)
+whose params are stacked on a leading axis, key for key as ``repro``
+(``params["layers"]["sub_0"]``); the port loops over the periods in Python.
+Three entry points:
+
+  * :func:`lm_forward`     — full-sequence logits;
+  * :func:`lm_prefill`     — forward + KV caches (inference prefill);
+  * :func:`lm_decode_step` — one token against the caches, which it
+    updates in place (``index_put_``; ``repro`` returns new caches and its
+    jit donates the old ones): treat the passed-in caches as consumed.
+
+``attn_impl="pallas"`` routes prefill attention to the flash kernel
+(:func:`repro_torch.kernels.ops.flash_attention`), as ``repro`` does, and
+the decode of a non-windowed layer to the decode kernel
+(:func:`repro_torch.kernels.ops.decode_attention`) with q folded to
+(B, KV, rep, Dh) against the unexpanded cache. ``repro`` decodes through
+the plain ``layers.decode_attention`` under every ``attn_impl``; the two
+compute the same function (ROADMAP queue 3, the decode route).
+
+The moe, rec and ssm layer kinds and the moe, ssm, hybrid, encdec and vlm
+families raise ``NotImplementedError``: they come with ROADMAP queue 1
+item 7a.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as KOPS
+from repro_torch.models import layers as L
+from repro_torch.models.module import dtype_of, run_periods, tree_map
+
+Params = Dict[str, Any]
+
+_LATER = "ROADMAP queue 1 item 7a"
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; it "
+            f"comes with {_LATER} (the port serves the dense family)")
+
+
+def _check_kind(kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet; "
+                                  f"it comes with {_LATER}")
+
+
+# --------------------------------------------------------------------------
+# Layer plan / periods
+# --------------------------------------------------------------------------
+def layer_plan(cfg: ArchConfig) -> List[str]:
+    if cfg.family in ("dense", "vlm"):
+        return ["attn"] * cfg.n_layers
+    if cfg.family == "moe":
+        return ["moe"] * cfg.n_layers
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rec",)
+        return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+    raise ValueError(cfg.family)
+
+
+def split_plan(cfg: ArchConfig) -> Tuple[List[str], int, List[str]]:
+    """(period_plan, n_stacked_periods, tail_plan)."""
+    plan = layer_plan(cfg)
+    per = len(cfg.block_pattern) if cfg.block_pattern else 1
+    n_full = cfg.n_layers // per
+    return plan[:per], n_full, plan[n_full * per:]
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+def _attn_window(cfg: ArchConfig, kind: str) -> int:
+    # hybrid archs use *local* attention in their attention layers
+    return cfg.window if (cfg.family == "hybrid" and kind == "attn") else 0
+
+
+def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Params:
+    _check_kind(kind)
+    dt, d, dev = dtype_of(cfg.dtype), cfg.d_model, gen.device
+    return {"ln1": L.init_norm(cfg.norm, d, dt, dev),
+            "attn": L.init_attention(gen, cfg, dt),
+            "ln2": L.init_norm(cfg.norm, d, dt, dev),
+            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.act, dt)}
+
+
+def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """Random weights at ``cfg``'s shapes, drawn from ``gen`` on its device
+    (``repro``'s vocabulary padding for sharding is left out: one device)."""
+    _check_family(cfg)
+    dt = dtype_of(cfg.dtype)
+    period_plan, n_full, tail = split_plan(cfg)
+    params: Params = {
+        "embedding": L.init_embedding(gen, cfg.vocab, cfg.d_model, dt,
+                                      cfg.tie_embeddings),
+        "final_norm": L.init_norm(cfg.norm, cfg.d_model, dt, gen.device),
+    }
+    periods = [{f"sub_{i}": init_layer(gen, cfg, kind)
+                for i, kind in enumerate(period_plan)} for _ in range(n_full)]
+    params["layers"] = tree_map(lambda *xs: torch.stack(xs), *periods)
+    if tail:
+        params["tail"] = {f"layer_{i}": init_layer(gen, cfg, kind)
+                          for i, kind in enumerate(tail)}
+    return params
+
+
+def params_from_jax(tree, *, device) -> Params:
+    """``repro``'s param pytree, as numpy arrays (or anything
+    ``np.asarray`` takes), as the port's dict on ``device``: key for key,
+    layout for layout. bfloat16 leaves are carried bit for bit (through
+    ``uint16``, with no ``ml_dtypes`` import); float32 leaves convert
+    directly."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device=device) for k, v in tree.items()}
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+# --------------------------------------------------------------------------
+# Per-layer apply (train forward / prefill / decode)
+# --------------------------------------------------------------------------
+def _rope(cfg: ArchConfig, x, positions):
+    if cfg.rope_style == "none":
+        return x
+    rd = cfg.hd // 2 if cfg.rope_style == "partial" else cfg.hd
+    return L.apply_rope(x, positions, cfg.rope_theta, rotary_dim=rd)
+
+
+def _attn_block(p, x, cfg: ArchConfig, kind: str, positions):
+    """Pre-norm attention over the whole sequence; returns the new residual
+    and the unexpanded, rotated k/v."""
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    q, k, v = L.qkv(p["attn"], h)
+    q, k = _rope(cfg, q, positions), _rope(cfg, k, positions)
+    ctx = L.attention_any(q, L.expand_kv(k, cfg), L.expand_kv(v, cfg),
+                          causal=True, window=_attn_window(cfg, kind),
+                          impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    return x + L.out_proj(p["attn"], ctx), k, v
+
+
+def _mlp_block(p, x, cfg: ArchConfig):
+    return x + L.apply_mlp(p["mlp"], L.apply_norm(cfg.norm, p["ln2"], x),
+                           cfg.act)
+
+
+def apply_layer_train(p, x, cfg: ArchConfig, kind: str, positions):
+    """Forward of one layer over the whole sequence (no backward here)."""
+    _check_kind(kind)
+    x, _, _ = _attn_block(p, x, cfg, kind, positions)
+    return _mlp_block(p, x, cfg)
+
+
+def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
+                     *, device):
+    _check_kind(kind)
+    S = cfg.window if _attn_window(cfg, kind) else cache_len
+    shape = (batch, S, cfg.n_kv_heads, cfg.hd)
+    dt = dtype_of(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_caches(cfg: ArchConfig, batch: int, cache_len: int, *,
+                device) -> Params:
+    period_plan, n_full, tail = split_plan(cfg)
+    layers = {f"sub_{i}": init_layer_cache(cfg, kind, batch, cache_len,
+                                           device=device)
+              for i, kind in enumerate(period_plan)}
+    caches: Params = {"layers": tree_map(
+        lambda x: x[None].repeat((n_full,) + (1,) * x.dim()), layers)}
+    if tail:
+        caches["tail"] = {f"layer_{i}": init_layer_cache(
+            cfg, kind, batch, cache_len, device=device)
+            for i, kind in enumerate(tail)}
+    return caches
+
+
+def apply_layer_prefill(p, x, cfg: ArchConfig, kind: str, positions):
+    """Full-sequence forward that also returns the decode cache."""
+    _check_kind(kind)
+    x, k, v = _attn_block(p, x, cfg, kind, positions)
+    x = _mlp_block(p, x, cfg)
+    window = _attn_window(cfg, kind)
+    if not window:
+        return x, {"k": k, "v": v}
+    # ring buffer of exactly `window` slots (slot = pos % W) holding the
+    # last min(S, W) positions; decode masks unwritten slots
+    S = k.shape[1]
+    keep = min(S, window)
+    pos_keep = S - keep + torch.arange(keep, device=k.device)
+    slots = pos_keep % window
+    kc = k.new_zeros((k.shape[0], window) + tuple(k.shape[2:]))
+    vc = torch.zeros_like(kc)
+    kc[:, slots] = k[:, pos_keep]
+    vc[:, slots] = v[:, pos_keep]
+    return x, {"k": kc, "v": vc}
+
+
+def _decode_kernel_route(q, kc, vc, pos, cfg: ArchConfig):
+    """q (B,1,H,Dh) folded to (B,KV,rep,Dh) against the unexpanded caches.
+    The fold is right only when head h reads kv head h // rep, which
+    ``kv_head_map`` gives when no head is padded (hazard H14)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if cfg.padded_heads != H or H % KV != 0:
+        raise ValueError(
+            f"{cfg.name}: attn_impl='pallas' decodes with q folded to "
+            f"(B, KV, rep, Dh), which needs padded_heads == n_heads and "
+            f"n_heads % n_kv_heads == 0 (got {cfg.padded_heads}, {H}, {KV})")
+    B, _, _, Dh = q.shape
+    ctx = KOPS.decode_attention(q.reshape(B, KV, H // KV, Dh), kc, vc, pos)
+    return ctx.reshape(B, 1, H, Dh)
+
+
+def _masked_decode_attn(q, k_cache, v_cache, valid):
+    s = torch.einsum("bqhd,bshd->bhqs", q, k_cache).to(torch.float32)
+    s = s / math.sqrt(q.shape[-1])
+    s = s.masked_fill(~valid[:, None, None, :], -float("inf"))
+    p_attn = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p_attn, v_cache)
+
+
+def apply_layer_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
+    """x: (B,1,d); pos: (B,) int32, the absolute position of the incoming
+    token. Writes the token's k/v into ``cache`` in place; returns
+    ``(x, cache)``."""
+    _check_kind(kind)
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    q, k, v = L.qkv(p["attn"], h)
+    q, k = _rope(cfg, q, pos[:, None]), _rope(cfg, k, pos[:, None])
+    window = _attn_window(cfg, kind)
+    kc, vc = cache["k"], cache["v"]
+    rows = torch.arange(x.shape[0], device=x.device)
+    slot = pos.to(torch.int64) % window if window else pos.to(torch.int64)
+    kc.index_put_((rows, slot), k[:, 0])
+    vc.index_put_((rows, slot), v[:, 0])
+    if window:
+        j = torch.arange(kc.shape[1], device=x.device)[None, :]
+        stored_pos = pos[:, None] - torch.remainder(pos[:, None] - j, window)
+        ctx = _masked_decode_attn(q, L.expand_kv(kc, cfg),
+                                  L.expand_kv(vc, cfg), stored_pos >= 0)
+    elif cfg.attn_impl == "pallas":
+        ctx = _decode_kernel_route(q, kc, vc, pos, cfg)
+    else:
+        ctx = L.decode_attention(q, L.expand_kv(kc, cfg),
+                                 L.expand_kv(vc, cfg), pos)
+    x = x + L.out_proj(p["attn"], ctx)
+    return _mlp_block(p, x, cfg), cache
+
+
+# --------------------------------------------------------------------------
+# Model-level entry points
+# --------------------------------------------------------------------------
+def _embed(params, cfg: ArchConfig, tokens):
+    return L.embed(params["embedding"], tokens, scale_by_dim=cfg.embed_scale)
+
+
+def lm_forward(params, tokens, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V)."""
+    _check_family(cfg)
+    period_plan, _, tail_plan = split_plan(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def period_body(h, pp):
+        for i, kind in enumerate(period_plan):
+            h = apply_layer_train(pp[f"sub_{i}"], h, cfg, kind, positions)
+        return h, None
+
+    x, _ = run_periods(period_body, x, params["layers"])
+    for i, kind in enumerate(tail_plan):
+        x = apply_layer_train(params["tail"][f"layer_{i}"], x, cfg, kind,
+                              positions)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    return L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
+
+
+def lm_prefill(params, tokens, cfg: ArchConfig):
+    """Forward over the prompt -> (last-position logits (B, 1, V), caches)."""
+    _check_family(cfg)
+    period_plan, _, tail_plan = split_plan(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def period_body(h, pp):
+        caches = {}
+        for i, kind in enumerate(period_plan):
+            h, caches[f"sub_{i}"] = apply_layer_prefill(pp[f"sub_{i}"], h,
+                                                        cfg, kind, positions)
+        return h, caches
+
+    x, stacked = run_periods(period_body, x, params["layers"])
+    caches: Params = {"layers": stacked}
+    if tail_plan:
+        caches["tail"] = {}
+        for i, kind in enumerate(tail_plan):
+            x, caches["tail"][f"layer_{i}"] = apply_layer_prefill(
+                params["tail"][f"layer_{i}"], x, cfg, kind, positions)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    logits = L.unembed(params["embedding"], x[:, -1:, :], true_vocab=cfg.vocab)
+    return logits, caches
+
+
+def lm_decode_step(params, caches, token, pos, cfg: ArchConfig):
+    """token: (B,) int; pos: (B,) int32 absolute position. Returns
+    ``(logits (B, V), caches)``; the caches are updated in place."""
+    _check_family(cfg)
+    period_plan, _, tail_plan = split_plan(cfg)
+    x = _embed(params, cfg, token[:, None])
+
+    def period_body(h, inp):
+        pp, pc = inp
+        for i, kind in enumerate(period_plan):
+            h, _ = apply_layer_decode(pp[f"sub_{i}"], h, pc[f"sub_{i}"], pos,
+                                      cfg, kind)
+        return h, None
+
+    x, _ = run_periods(period_body, x, (params["layers"], caches["layers"]))
+    for i, kind in enumerate(tail_plan):
+        x, _ = apply_layer_decode(params["tail"][f"layer_{i}"], x,
+                                  caches["tail"][f"layer_{i}"], pos, cfg, kind)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    logits = L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
+    return logits[:, 0, :], caches

@@ -13,6 +13,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.hybrid import run_hybrid_multihop  # noqa: E402
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,  # noqa: E402
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
+                                                 flash_attention_plain)
 from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
                                               olaf_combine_plain)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
@@ -151,3 +155,68 @@ def test_hybrid_backends_bitwise_on_the_card(cuda_device):
         assert t0 == t1 and u0.agg_count == u1.agg_count
         assert p0.device.type == "cuda" and torch.equal(p0, p1)
     np.testing.assert_array_equal(event.final_counts, window.final_counts)
+
+
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # bf16: ~2 ulps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype):
+    """Ragged lengths, every head dim, causal, window and q offset; a row
+    whose keys all lie before the window gives 0."""
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    cases = [(6, 130, 130, 64, True, 0, 0), (4, 77, 200, 128, True, 0, 123),
+             (3, 100, 100, 256, True, 17, 0), (2, 70, 70, 64, False, 0, 0),
+             (2, 8, 40, 64, True, 4, 60)]
+    before = flash_attention_cuda.launches
+    for BH, Sq, Sk, Dh, causal, window, q_offset in cases:
+        q, k, v = (torch.randn((BH, S, Dh), generator=gen, device=cuda_device)
+                   .to(dtype) for S in (Sq, Sk, Sk))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, flash_attention_plain(q, k, v, **kw),
+                                   rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    assert torch.equal(got, torch.zeros_like(got))  # the last case: all masked
+    # the model layout (B, S, H, Dh) through ops, one batch row
+    x = torch.randn((1, 33, 3, 64), generator=gen, device=cuda_device).to(dtype)
+    got = ops.flash_attention(x, x, x, causal=True)
+    want = flash_attention_plain(*(x.transpose(1, 2).reshape(3, 33, 64),) * 3)
+    torch.testing.assert_close(got, want.reshape(1, 3, 33, 64).transpose(1, 2),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    assert flash_attention_cuda.launches == before + len(cases) + 1
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(TypeError, match="not supported"):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda_device, dtype):
+    """Per-row positions over ragged caches, read in place from a stacked
+    (L, B, S, KV, Dh) cache; positions past pos hold junk that must not
+    weigh in."""
+    gen = torch.Generator(cuda_device).manual_seed(12)
+    before = decode_attention_cuda.launches
+    cases = [(8, 5, 3, 552, 64), (4, 1, 8, 1000, 256), (3, 2, 16, 77, 128)]
+    for B, KV, rep, S, Dh in cases:
+        q = torch.randn((B, KV, rep, Dh), generator=gen, device=cuda_device).to(dtype)
+        stacked = torch.randn((2, 2, B, S, KV, Dh), generator=gen,
+                              device=cuda_device).to(dtype)
+        kc, vc = stacked[0, 1], stacked[1, 1]
+        pos = torch.randint(0, S, (B,), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+        pos[0] = S - 1
+        got = ops.decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        want = decode_attention_plain(q, kc, vc, pos)
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL[dtype],
+                                   atol=ATTN_TOL[dtype])
+        kc[1, int(pos[1]) + 1:] = 1e4
+        torch.testing.assert_close(decode_attention_cuda(q, kc, vc, pos), got)
+    assert decode_attention_cuda.launches == before + 2 * len(cases)
+    with pytest.raises(ValueError, match="strides"):
+        decode_attention_cuda(q, kc.transpose(0, 1).contiguous().transpose(0, 1),
+                              vc, pos)

@@ -46,7 +46,10 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(names) >= 20  # every module was imported
     assert {"repro_torch.core.hybrid", "repro_torch.kernels.olaf_combine",
             "repro_torch.kernels.olaf_enqueue",
-            "repro_torch.launch.train"} <= names
+            "repro_torch.launch.train", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.launch.serve"} <= names
 
 
 def test_trainer_without_a_card_raises():
@@ -61,3 +64,13 @@ def test_trainer_without_a_card_raises():
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serve_without_a_card_raises():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = get_config("smollm-360m").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve(cfg, batch=1, prompt_len=4, gen=1)
