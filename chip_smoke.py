@@ -13,8 +13,12 @@ the ``olaf_combine`` kernel), the fat-tree scenario command, the
 serving of smollm-360m at full width and depth (``launch.serve.serve``
 under ``attn_impl="pallas"``: every prefill layer is one
 ``flash_attention`` launch, every decode layer one ``decode_attention``
-call). It times the kernels and ends with one JSON line ``{"ok": true,
-"device": {...}}``.
+launch). The attention kernels are held to their plain versions in both
+the folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one,
+and timed beside SDPA. It prints each kernel's ptxas registers and spills,
+counts each wrapper's device kernels per call in a profiler trace (one
+for each attention kernel, or it fails), times the kernels and ends with one JSON line ``{"ok": true, "device":
+{...}}``.
 Any failed check raises and exits non-zero before that line. Without a
 CUDA card, or without the repository beside it, it fails.
 
@@ -26,6 +30,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -271,6 +276,43 @@ def profile_kernel(state, b, reps=20):
         torch.cuda.synchronize()
     return {name: us / reps for name, (n, us) in device_kernels(prof).items()
             if "olaf" in name}
+
+
+def launches_per_call(call, setup, names, calls=5, markers=8, tries=4):
+    """Device kernels per call of ``call(setup())`` whose names hold one of
+    ``names``, and the other device operations per call, as the profiler
+    traced ``calls`` calls (after one call outside the trace). The tracer
+    can lose device records at either end of a trace (more so after a large
+    trace), so the calls are fenced by ``markers`` spin kernels before and
+    after, with a wait at each end, and a trace that lost any marker is
+    taken again."""
+    for attempt in range(tries):
+        inputs = [setup() for _ in range(calls + 1)]
+        call(inputs[0])
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.5 * (attempt + 1))
+            for _ in range(markers):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for x in inputs[1:]:
+                call(x)
+            for _ in range(markers):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.5 * (attempt + 1))
+        events = device_kernels(prof)
+        seen = sum(n for name, (n, _) in events.items()
+                   if "spin_kernel" in name)
+        if seen == 2 * markers:
+            break
+    require(seen == 2 * markers, f"the profiler traced {seen} of its "
+            f"{2 * markers} marker kernels in each of {tries} traces")
+    mine = sum(n for name, (n, _) in events.items()
+               if any(s in name for s in names))
+    other = sum(n for n, _ in events.values()) - mine - seen
+    return mine / calls, other / calls
 
 
 # ---------------------------------------------------------------------------
@@ -543,6 +585,14 @@ FLASH_SHAPES = {
     "c": (16, 1000, 1000, 256, True, 128, 0),  # ragged, gemma's head dim
     "d": (64, 256, 768, 128, True, 0, 512),
 }
+# the model's (B, S, H, Dh) layout, q/k/v strided views into fused (B, S,
+# 3, H, Dh) projections, read in place by the kernel:
+# name: (B, Sq, Sk, H, Dh, causal, window, q_offset)
+FLASH_MODEL_SHAPES = {
+    "a/model": (8, 512, 512, 15, 64, True, 0, 0),  # the smollm-360m prefill
+    "c/model": (2, 1000, 1000, 8, 256, True, 128, 0),
+    "d/model": (4, 256, 768, 16, 128, True, 0, 512),
+}
 # name: (B, KV, rep, S, Dh, positions)
 DECODE_SHAPES = {
     "a": (8, 5, 3, 552, 64, "spread"),  # the serve cache, rows at 0..551
@@ -568,13 +618,30 @@ def flash_inputs(gen, dev, shape, dtype):
                  for S in (Sq, Sk, Sk))
 
 
+def flash_model_inputs(gen, dev, shape, dtype):
+    """q from a fused (B, Sq, 3, H, Dh) projection, k and v from a fused
+    (B, Sk, 3, H, Dh) one: strided (B, S, H, Dh) views, not copies."""
+    B, Sq, Sk, H, Dh = shape[:5]
+    xq, xkv = (torch.randn((B, S, 3, H, Dh), generator=gen, device=dev)
+               .to(dtype) for S in (Sq, Sk))
+    return xq[:, :, 0], xkv[:, :, 1], xkv[:, :, 2]
+
+
+def folded_shape(shape):
+    """A (B, Sq, Sk, H, Dh, ...) model-layout shape as (B·H, Sq, Sk, Dh, ...)."""
+    B, Sq, Sk, H, Dh, causal, window, q_offset = shape
+    return (B * H, Sq, Sk, Dh, causal, window, q_offset)
+
+
 def flash_kw(shape):
     return dict(causal=shape[4], window=shape[5], q_offset=shape[6])
 
 
 def flash_plain_sliced(q, k, v, **kw):
-    """The plain version over slices of BH, so its dense scores fit."""
-    per = max(1, PLAIN_SCORE_BYTES // (4 * q.shape[1] * k.shape[1]))
+    """The plain version over slices of the batch, so its dense scores fit
+    (either layout: a (B, S, H, Dh) slice holds H heads)."""
+    heads = q.shape[2] if q.dim() == 4 else 1
+    per = max(1, PLAIN_SCORE_BYTES // (4 * heads * q.shape[1] * k.shape[1]))
     return torch.cat([flash_attention_plain(q[i:i + per], k[i:i + per],
                                             v[i:i + per], **kw)
                       for i in range(0, q.shape[0], per)])
@@ -599,10 +666,14 @@ def flash_cost(shape, itemsize: int):
 
 def flash_library(q, k, v, shape):
     """``F.scaled_dot_product_attention`` on the same inputs, seen as (1,
-    BH, S, Dh) (its fused backends take four dimensions): ``is_causal`` for
-    a plain causal mask, else the boolean mask (True = attend)."""
+    BH, S, Dh) or, in the model layout, (B, H, S, Dh) views (its fused
+    backends take four dimensions): ``is_causal`` for a plain causal mask,
+    else the boolean mask (True = attend)."""
     _, Sq, Sk, _, causal, window, q_offset = shape
-    q, k, v = q[None], k[None], v[None]
+    if q.dim() == 4:
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    else:
+        q, k, v = q[None], k[None], v[None]
     if causal and not window and not q_offset and Sq == Sk:
         return lambda _: F.scaled_dot_product_attention(q, k, v, is_causal=True)
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
@@ -670,12 +741,36 @@ def check_attention(dev, gen):
                 f"causal={shape[4]} window={shape[5]} q_offset={shape[6]} "
                 f"matches (max |err| {err:.3g}, tolerance {tol})")
             out[("flash", name, dtype)] = (err, (q, k, v))
+    for name, mshape in FLASH_MODEL_SHAPES.items():
+        shape = folded_shape(mshape)
+        for dtype in ATTN_DTYPES:
+            q, k, v = flash_model_inputs(gen, dev, mshape, dtype)
+            require(not q.is_contiguous(), f"flash {name}: q is not a view")
+            got = flash_attention_cuda(q, k, v, **flash_kw(shape))
+            want = flash_plain_sliced(q, k, v, **flash_kw(shape))
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = ATTN_TOL[dtype]
+            require(got.shape == q.shape and bool(torch.isfinite(got).all()),
+                    f"flash {name}: shape or non-finite")
+            require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                    f"flash {name} {dtype}: off by {err}")
+            log(f"[check] flash_attention {name} {str(dtype)[6:]}: (B, S, H, "
+                f"Dh) views B={mshape[0]} Sq={mshape[1]} Sk={mshape[2]} "
+                f"H={mshape[3]} Dh={mshape[4]} strides {tuple(q.stride())} "
+                f"causal={mshape[5]} window={mshape[6]} q_offset={mshape[7]} "
+                f"matches (max |err| {err:.3g}, tolerance {tol})")
+            out[("flash", name, dtype)] = (err, (q, k, v))
     for name, shape in DECODE_SHAPES.items():
         for dtype in ATTN_DTYPES:
             q, kc, vc, pos = decode_inputs(gen, dev, shape, dtype)
             got = decode_attention_cuda(q, kc, vc, pos)
+            again = [decode_attention_cuda(q, kc, vc, pos) for _ in range(2)]
             want = decode_attention_plain(q, kc, vc, pos)
             torch.cuda.synchronize()
+            require(all(torch.equal(got, x) for x in again),
+                    f"decode {name} {dtype}: repeated calls differ (the merge "
+                    f"must not depend on the order blocks finish)")
             err = float((got.float() - want.float()).abs().max())
             tol = ATTN_TOL[dtype]
             require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
@@ -683,7 +778,7 @@ def check_attention(dev, gen):
             log(f"[check] decode_attention {name} {str(dtype)[6:]}: "
                 f"B={shape[0]} KV={shape[1]} rep={shape[2]} S={shape[3]} "
                 f"Dh={shape[4]} pos {pos.tolist()} matches (max |err| "
-                f"{err:.3g}, tolerance {tol})")
+                f"{err:.3g}, tolerance {tol}); 3 calls bitwise equal")
             out[("decode", name, dtype)] = (err, (q, kc, vc, pos))
     return out
 
@@ -695,7 +790,8 @@ def time_attention(checked, reps: int):
     for (kind, name, dtype), (err, x) in checked.items():
         itemsize = torch.finfo(dtype).bits // 8
         if kind == "flash":
-            shape = FLASH_SHAPES[name]
+            shape = (FLASH_SHAPES[name] if name in FLASH_SHAPES
+                     else folded_shape(FLASH_MODEL_SHAPES[name]))
             kw = flash_kw(shape)
             kernel_fn = lambda _: flash_attention_cuda(*x, **kw)  # noqa: E731
             plain_fn = lambda _: flash_plain_sliced(*x, **kw)  # noqa: E731
@@ -712,15 +808,20 @@ def time_attention(checked, reps: int):
         library = time_ms(library_fn, lambda: None, reps)
         kernel2 = time_ms(kernel_fn, lambda: None, reps)
         bound, by = attn_bound_ms(nbytes, nops, dtype)
+        ms = min(kernel, kernel2)
+        rate = (f"{nops / ms / 1e9:.1f} TFLOP/s" if kind == "flash"
+                else f"{nbytes / ms / 1e6:.1f} GB/s")
         rows[(kind, name, dtype)] = dict(
-            dtype=str(dtype)[6:], ms=min(kernel, kernel2),
+            dtype=str(dtype)[6:], ms=ms,
             ms_runs=[kernel, kernel2], plain_ms=plain, library_ms=library,
             bound_ms=bound, bound_by=by, bytes=nbytes, ops=nops,
-            max_abs_err=err)
+            max_abs_err=err, share_of_bound=bound / ms,
+            vs_library=ms / library, rate=rate)
         log(f"[time] {kind}_attention {name} {str(dtype)[6:]}: kernel "
-            f"{min(kernel, kernel2):.4f} ms (runs {kernel:.4f}, {kernel2:.4f}) "
+            f"{ms:.4f} ms (runs {kernel:.4f}, {kernel2:.4f}) "
             f"plain {plain:.4f} ms SDPA {library:.4f} ms bound {bound:.6f} ms "
-            f"({by}: {nbytes} B, {nops} operations)")
+            f"({by}: {nbytes} B, {nops} operations); {rate}, "
+            f"{100 * bound / ms:.1f}% of the bound, {ms / library:.2f}x SDPA")
     return rows
 
 
@@ -802,14 +903,17 @@ def serve_phase(dev) -> dict:
     kernels_s = device_kernels(prof)
     busy_s = sum(us for _, us in kernels_s.values()) / 1e6
     if busy_s:
-        fl_us = sum(us for n, (_, us) in kernels_s.items() if "flash_kernel" in n)
-        dec_us = sum(us for n, (_, us) in kernels_s.items() if "decode_" in n)
+        fl = [(c, us) for n, (c, us) in kernels_s.items()
+              if "flash_wgmma" in n or "flash_kernel" in n]
+        dec = [(c, us) for n, (c, us) in kernels_s.items() if "decode_kernel" in n]
+        fl_us, dec_us = sum(us for _, us in fl), sum(us for _, us in dec)
         top = sorted(kernels_s.items(), key=lambda kv: -kv[1][1])[:6]
         log(f"[serve] profiled repeat: device busy {busy_s:.4f} s in "
             f"{sum(n for n, _ in kernels_s.values())} device events over "
             f"{wall_sp:.3f} s wall: idle share {100 * (1 - busy_s / wall_sp):.2f}%; "
-            f"flash_kernel {fl_us / 1e3:.4f} ms, decode_partial + "
-            f"decode_combine {dec_us / 1e3:.4f} ms; the largest: " + "; ".join(
+            f"flash {fl_us / 1e3:.4f} ms in {sum(c for c, _ in fl)} launches, "
+            f"decode {dec_us / 1e3:.4f} ms in {sum(c for c, _ in dec)} "
+            f"launches; the largest: " + "; ".join(
                 f"{n[:60]} x{c} {us / 1e3:.3f} ms" for n, (c, us) in top))
     else:
         log("[serve] device busy: not measured (the profiler recorded no "
@@ -833,6 +937,43 @@ def serve_phase(dev) -> dict:
     return serve_counts
 
 
+def demangle(names):
+    """mangled -> readable kernel name (``void flash_wgmma<128>``), as the
+    toolkit's ``cu++filt -p`` prints it; the mangled names where that
+    tool is missing or fails."""
+    names = sorted(set(names))
+    filt = pathlib.Path(_build._nvcc()).with_name("cu++filt")
+    if names and filt.exists():
+        res = subprocess.run([str(filt), "-p", *names], capture_output=True,
+                             text=True, timeout=60)
+        lines = res.stdout.splitlines()
+        if res.returncode == 0 and len(lines) == len(names):
+            return dict(zip(names, lines))
+    return {n: n for n in names}
+
+
+def ptxas_kernels(text: str):
+    """(mangled kernel name, "N registers, S B smem, spill stores/loads")
+    per kernel of one source's ``nvcc -Xptxas -v`` output."""
+    out, label, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            label, spill = m.group(1), ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and label:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            out.append((label, f"{m.group(1)} registers, static smem "
+                        f"{smem.group(1) if smem else 0} B, {spill}"))
+            label = None
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. the card ------------------------------------------------------
@@ -853,11 +994,11 @@ def main() -> int:
     logs = _build.build_all()
     log(f"[build] {len(_build.sources())} kernel source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if any(w in line for w in ("entry function", "registers", "smem",
-                                       "spill")):
-                log(f"[build] {name}: {line.strip()}")
+    ptxas = {name: ptxas_kernels(text) for name, text in logs.items()}
+    labels = demangle(m for rows in ptxas.values() for m, _ in rows)
+    for name, rows in ptxas.items():
+        for mangled, info in rows:
+            log(f"[build] {name} {labels[mangled]}: {info}")
 
     # ---- 3. every kernel against its plain version ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -896,6 +1037,37 @@ def main() -> int:
     enq_err = max(enq_err_a, enq_err_b)
     # flash_attention and decode_attention at every listed shape, bf16 and f32
     attn_checked = check_attention(dev, gen)
+    # device kernels per wrapper call, as the profiler traces them (the
+    # wrapper's count adds one per call by construction and cannot show it),
+    # before any large trace of the paths, after which the tracer loses
+    # records
+    per_call = {
+        "olaf_step": launches_per_call(
+            lambda st: olaf_step_cuda(st, *b_a2.args()), pre_a2.clone,
+            ("olaf_",)),
+        "olaf_combine": launches_per_call(
+            lambda a: olaf_combine_cuda(*a), lambda: comb["a U=4"],
+            ("olaf_combine",)),
+        "olaf_enqueue": launches_per_call(
+            lambda st: olaf_enqueue_cuda(st, *enqueue_args(b_ea)),
+            pre_ea.clone, ("olaf_",))}
+    for dtype in ATTN_DTYPES:
+        fx = attn_checked[("flash", "a", dtype)][1]
+        dx = attn_checked[("decode", "a", dtype)][1]
+        per_call[("flash_attention", dtype)] = launches_per_call(
+            lambda x: flash_attention_cuda(*x, **flash_kw(FLASH_SHAPES["a"])),
+            lambda: fx, ("flash_wgmma", "flash_kernel"))
+        per_call[("decode_attention", dtype)] = launches_per_call(
+            lambda x: decode_attention_cuda(*x), lambda: dx, ("decode_kernel",))
+    for key, (mine, other) in per_call.items():
+        name = key if isinstance(key, str) else f"{key[0]} {str(key[1])[6:]}"
+        log(f"[launches] {name}: {mine:g} kernel launch(es) and {other:g} "
+            f"other device operation(s) per call (profiler, 5 calls)")
+        require(mine >= 1, f"{name}: the profiler traced no kernel of the "
+                f"call")
+        if not isinstance(key, str):
+            require(mine == 1, f"{name}: {mine:g} kernel launches per call, "
+                    f"not one")
 
     # ---- 4. the main path: the trainer at the paper's model width ---------
     cfg = trainer_cfg()
@@ -1182,7 +1354,8 @@ def main() -> int:
         plain_ms=t_a["plain_ms"], bound_ms=t_a["bound_ms"],
         bound_by=t_a["bound_by"], library_ms=None,
         bytes=t_a["bytes"], kernel_bytes=t_a["kernel_bytes"],
-        cuda_launches_per_call=2, shape="S=1 Q=2 U=2 k=2 D=941 (trainer)",
+        cuda_launches_per_call=per_call["olaf_step"][0],
+        shape="S=1 Q=2 U=2 k=2 D=941 (trainer)",
         stress=dict(shape="S=3 Q=64 U=96 k=16 D=1048579", ms=t_b["ms"],
                     plain_ms=t_b["plain_ms"], bound_ms=t_b["bound_ms"],
                     bytes=t_b["bytes"], kernel_bytes=t_b["kernel_bytes"]),
@@ -1200,7 +1373,8 @@ def main() -> int:
         bound_ms=t_ca[4]["bound_ms"], bound_by=t_ca[4]["bound_by"],
         library_ms=None, library_note=no_library,
         bytes=t_ca[4]["bytes"], kernel_bytes=t_ca[4]["kernel_bytes"],
-        cuda_launches_per_call=1, shape="S=3 Q=4 U=4 D=941 (hybrid window)",
+        cuda_launches_per_call=per_call["olaf_combine"][0],
+        shape="S=3 Q=4 U=4 D=941 (hybrid window)",
         u16=dict(shape="S=3 Q=4 U=16 D=941", **{
             k: t_ca[16][k] for k in ("ms", "plain_ms", "bound_ms", "bytes",
                                      "kernel_bytes")}),
@@ -1216,13 +1390,14 @@ def main() -> int:
         ms=t_ea["ms"], plain_ms=t_ea["plain_ms"], bound_ms=t_ea["bound_ms"],
         bound_by=t_ea["bound_by"], library_ms=None, library_note=no_library,
         bytes=t_ea["bytes"], kernel_bytes=t_ea["kernel_bytes"],
-        cuda_launches_per_call=2, shape="Q=8 U=16 D=941",
+        cuda_launches_per_call=per_call["olaf_enqueue"][0],
+        shape="Q=8 U=16 D=941",
         stress=dict(shape="Q=64 U=96 D=1048579 capacity=48", **{
             k: t_eb[k] for k in ("ms", "plain_ms", "bound_ms", "bytes",
                                  "kernel_bytes")}),
         launches_by_path=by_path("olaf_enqueue"))
 
-    def attn_entry(kind, source, replaces, launches_per_call, head_shape):
+    def attn_entry(kind, source, replaces, head_shape):
         name = f"{kind}_attention"
         head = attn_times[(kind, "a", torch.bfloat16)]
         errs = {dt: max(r["max_abs_err"] for (k, _, d), r in attn_times.items()
@@ -1236,20 +1411,23 @@ def main() -> int:
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             library_call="torch.nn.functional.scaled_dot_product_attention",
             bytes=head["bytes"], ops=head["ops"],
-            cuda_launches_per_call=launches_per_call, shape=head_shape,
+            cuda_launches_per_call={str(dt)[6:]: per_call[(name, dt)][0]
+                                    for dt in ATTN_DTYPES},
+            shape=head_shape,
             shapes={f"{n} {r['dtype']}": {k: r[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "bytes", "ops", "max_abs_err")}
+                "bytes", "ops", "max_abs_err", "share_of_bound", "vs_library",
+                "rate")}
                 for (k, n, _), r in attn_times.items() if k == kind},
             launches_by_path=by_path(name))
 
     flash_entry = attn_entry(
         "flash", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:83", 1,
+        "src/repro/kernels/flash_attention.py:83",
         "BH=120 Sq=Sk=512 Dh=64 causal bf16 (the smollm-360m prefill, B=8)")
     decode_entry = attn_entry(
         "decode", "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention.py:68", 2,
+        "src/repro/kernels/decode_attention.py:68",
         "B=8 KV=5 rep=3 S=552 Dh=64 bf16, pos 0..551 (the serve cache)")
     print(smi, flush=True)
     print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry,

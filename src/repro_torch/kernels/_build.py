@@ -49,8 +49,9 @@ def _target(name: str) -> Path:
 def build_all() -> Dict[str, str]:
     """Compile every source that has no up-to-date library, one ``nvcc``
     process per source, all started together. Returns ``name -> compiler
-    output`` (``-Xptxas -v``: registers and shared memory per kernel) for
-    the sources built by this call; raises if any build fails."""
+    output`` (``-Xptxas -v``: registers, shared memory and spills per
+    kernel) for every source, kept beside its library when it was built
+    earlier; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -69,9 +70,14 @@ def build_all() -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{logs[name]}")
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)  # atomic: a half-written library never loads
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    for name in sources():
+        log = _target(name).with_suffix(".log")
+        if name not in logs and log.exists():
+            logs[name] = log.read_text()
     return logs
 
 

@@ -182,19 +182,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """Flash attention in the model's (B, S, H, Dh) layout (kv already
     expanded to H heads): the counterpart of ``repro.kernels.ops.
-    flash_attention``. Heads are folded into the batch, (B·H, S, Dh), for
-    the kernel and unfolded after."""
+    flash_attention``. The kernel reads q, k and v in place through their
+    strides and writes a new (B, Sq, H, Dh) tensor: no fold copy."""
     dev = _device_of(q, k, v, op="flash_attention")
     fn = _route("flash_attention", dev, flash_attention_cuda,
                 flash_attention_plain)
-    B, Sq, H, Dh = q.shape
-
-    def fold(x):  # a copy: the kernel reads contiguous (B·H, S, Dh) rows
-        return x.permute(0, 2, 1, 3).reshape(B * H, x.shape[1], Dh).contiguous()
-
-    out = fn(fold(q), fold(k), fold(v), causal=causal, window=window,
-             q_offset=q_offset)
-    return out.reshape(B, H, Sq, Dh).permute(0, 2, 1, 3)
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q (B, S, H, Dh) expected, got "
+                         f"{tuple(q.shape)}")
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:

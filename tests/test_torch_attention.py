@@ -9,6 +9,8 @@ CPU. Tolerances: float32 ``atol = rtol = 1e-5`` (float association); bf16
 float32 result once). The CUDA kernels themselves are held to the plain
 versions in ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -22,7 +24,8 @@ from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (chunk_for,  # noqa: E402
                                                   decode_attention_cuda,
-                                                  decode_attention_plain)
+                                                  decode_attention_plain,
+                                                  decode_plan)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
                                                  flash_attention_plain)
 
@@ -188,7 +191,196 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_decode_chunk_fills_the_card():
     """The serve shape (8 rows x 5 kv heads, S = 552) splits into chunks of
-    64 (360 blocks); the 32k cache keeps chunks of 256."""
+    64 (360 blocks); the 32k cache into chunks of 1024 (1,280 blocks, two
+    waves of three blocks on each of the H100's 132 SMs); a grid that
+    leaves SMs idle even at 64 takes chunks of 32."""
     assert chunk_for(8, 5, 552) == 64
-    assert chunk_for(8, 5, 32768) == 256
-    assert chunk_for(1, 1, 10) == 64
+    assert chunk_for(8, 5, 32768) == 1024
+    assert chunk_for(4, 1, 1000) == 32
+    assert chunk_for(1, 1, 10) == 32
+
+
+@pytest.mark.parametrize("B,KV,S", [(8, 5, 552), (8, 5, 32768), (4, 1, 1000),
+                                    (1, 1, 10), (64, 8, 4096)])
+def test_decode_plan_grid_and_tickets(B, KV, S):
+    """One launch per call: a (B·KV, nsplit) grid whose chunks cover the
+    cache once, as many blocks as fill the card where the cache is long
+    enough, and one ticket per (b, kv) group."""
+    plan = decode_plan(B, KV, S)
+    assert plan.grid == (B * KV, plan.nsplit)
+    assert plan.tickets == B * KV
+    assert plan.chunk == chunk_for(B, KV, S)
+    assert (plan.nsplit - 1) * plan.chunk < S <= plan.nsplit * plan.chunk
+    blocks = plan.grid[0] * plan.grid[1]
+    if plan.chunk > 64:  # a longer chunk only while the grid still fills
+        assert blocks >= 6 * 132
+    assert blocks >= min(6 * 132, B * KV * -(-S // 64))
+    assert plan.warps == (8 if blocks < 2 * 132 or plan.chunk >= 1024 else 4)
+
+
+# ---------------------------------------------------------------------------
+# the (B, S, H, Dh) model layout read through strides (no fold copy)
+# ---------------------------------------------------------------------------
+def _strided_qkv(rng, B, Sq, Sk, H, Dh, dtype):
+    """q, k, v as views into fused (B, S, 3, H, Dh) projections, the way a
+    fused qkv projection leaves them: strides (S·3·H·Dh, 3·H·Dh, Dh, 1)."""
+    out = []
+    for S, which in ((Sq, 0), (Sk, 1), (Sk, 2)):
+        j, t = _pair(rng.normal(size=(B, S, 3, H, Dh)), dtype)
+        out.append((j[:, :, which], t[:, :, which]))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk,window,q_offset", [(64, 64, 0, 0),
+                                                   (32, 96, 0, 64),
+                                                   (64, 64, 24, 0),
+                                                   (32, 96, 40, 64)])
+def test_flash_strided_model_layout_matches_folded_and_repro(Sq, Sk, window,
+                                                             q_offset, dtype):
+    """``flash_attention_plain`` and ``ops.flash_attention`` on strided
+    (B, S, H, Dh) views equal the folded (BH, S, Dh) path and ``repro``'s
+    ``ops.flash_attention`` (Pallas, interpret mode)."""
+    rng = np.random.default_rng(Sq + Sk + window + q_offset)
+    B, H, Dh = 2, 3, 16
+    (jq, tq), (jk, tk), (jv, tv) = _strided_qkv(rng, B, Sq, Sk, H, Dh, dtype)
+    assert not tq.is_contiguous() and tq.stride() == (Sq * 3 * H * Dh,
+                                                      3 * H * Dh, Dh, 1)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    want = jax_ops.flash_attention(jq, jk, jv, block_q=32, block_k=32,
+                                   interpret=True, **kw)
+    got = flash_attention_plain(tq, tk, tv, **kw)
+    assert got.shape == (B, Sq, H, Dh)
+    _close(got, want, dtype, f"plain strided {dtype}")
+    via_ops = ops.flash_attention(tq, tk, tv, **kw)
+    _close(via_ops, want, dtype, f"ops strided {dtype}")
+
+    def fold(x):
+        return x.permute(0, 2, 1, 3).reshape(B * H, x.shape[1], Dh)
+
+    folded = flash_attention_plain(fold(tq), fold(tk), fold(tv), **kw)
+    assert folded.shape == (B * H, Sq, Dh)
+    torch.testing.assert_close(folded.reshape(B, H, Sq, Dh).permute(0, 2, 1, 3),
+                               got, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_ops_flash_makes_no_fold_copy():
+    """``ops.flash_attention`` hands the kernel's wrapper q, k and v as they
+    are (the kernel reads them through their strides)."""
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.extend(t.data_ptr() for t in (q, k, v))
+        return flash_attention_plain(q, k, v, **kw)
+
+    rng = np.random.default_rng(5)
+    (_, q), (_, k), (_, v) = _strided_qkv(rng, 1, 8, 8, 2, 64, "float32")
+    orig = ops.flash_attention_plain
+    ops.flash_attention_plain = spy
+    try:
+        ops.flash_attention(q, k, v)
+    finally:
+        ops.flash_attention_plain = orig
+    assert seen == [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+
+
+def test_flash_wrapper_refuses_layouts_the_kernel_cannot_read():
+    """The CUDA wrapper's stride checks (what TMA and 16-byte loads take),
+    run before any launch: on meta tensors they raise the layout error."""
+    from repro_torch.kernels.flash_attention import _strides
+    good = torch.empty((2, 8, 3, 64), dtype=torch.bfloat16, device="meta")
+    assert _strides("q", good) == (8 * 3 * 64, 3 * 64, 64)
+    odd = torch.empty((2, 8, 3, 68), dtype=torch.bfloat16)[..., :60]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        _strides("q", odd)
+    transposed = torch.empty((2, 64, 3, 8), dtype=torch.bfloat16).transpose(1, 3)
+    with pytest.raises(ValueError, match="unit stride on Dh"):
+        _strides("k", transposed)
+
+
+# ---------------------------------------------------------------------------
+# hazard H15: the bf16 kernel rounds P to bf16 before P·V
+# ---------------------------------------------------------------------------
+def _bf16_kernel_model(q, k, v, *, causal, window, q_offset, BK):
+    """The bf16 tensor-core kernel's numerics in float32 on the CPU: S from
+    the bf16 inputs in float32, an online softmax per BK-key tile, l from
+    the float32 p, P rounded to bf16 before P·V, the output rounded once."""
+    BH, Sq, Dh = q.shape
+    Sk = k.shape[1]
+    qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    m = torch.full((BH, Sq, 1), -1e30)
+    l = torch.zeros((BH, Sq, 1))
+    o = torch.zeros((BH, Sq, Dh))
+    for k0 in range(0, Sk, BK):
+        kpos = torch.arange(k0, min(k0 + BK, Sk))[None, :]
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + BK]) / math.sqrt(Dh)
+        live = torch.ones((Sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            live &= kpos <= qpos
+        if window:
+            live &= kpos > qpos - window
+        s = torch.where(live, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(live, torch.exp(s - m_new), torch.tensor(0.0))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pb = p.to(torch.bfloat16).to(torch.float32)
+        o = o * corr + torch.einsum("bqk,bkd->bqd", pb, vf[:, k0:k0 + BK])
+        m = m_new
+    return (o / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+# the chip_smoke.py flash shapes (a)-(d), cut to a few heads (and (b) to
+# one head at its full 2048 length): (BH, Sq, Sk, Dh, causal, window, q_offset)
+H15_SHAPES = {"a": (2, 512, 512, 64, True, 0, 0),
+              "b": (1, 2048, 2048, 64, True, 0, 0),
+              "c": (2, 1000, 1000, 256, True, 128, 0),
+              "d": (2, 256, 768, 128, True, 0, 512)}
+
+
+@pytest.mark.parametrize("name", sorted(H15_SHAPES))
+def test_bf16_p_rounding_stays_within_tolerance_h15(name):
+    """Rounding P to bf16 (relative error at most 2^-9 per weight) keeps
+    the output within ATTN_TOL[bf16] = 1e-2 of the plain version, which
+    keeps P in float32: evidence for H15 before any card run."""
+    BH, Sq, Sk, Dh, causal, window, q_offset = H15_SHAPES[name]
+    gen = torch.Generator().manual_seed(15)
+    q, k, v = (torch.randn((BH, S, Dh), generator=gen).to(torch.bfloat16)
+               for S in (Sq, Sk, Sk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _bf16_kernel_model(q, k, v, BK=64 if Dh == 256 else 128, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.to(torch.float32), want.to(torch.float32),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+def _bf16_decode_model(q, kc, vc, pos):
+    """The bf16 decode kernel's numerics at Dh 64 in float32 on the CPU:
+    S from the bf16 inputs, the weights p in float32 for l and rounded to
+    bf16 for P·V, the output rounded once."""
+    s = torch.einsum("bkrd,bskd->bkrs", q.float(), kc.float()) / math.sqrt(
+        q.shape[-1])
+    live = torch.arange(kc.shape[1])[None, :] <= pos[:, None]
+    s = s.masked_fill(~live[:, None, None, :], -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    pb = p.to(torch.bfloat16).float()
+    out = torch.einsum("bkrs,bskd->bkrd", pb, vc.float()) / p.sum(-1, keepdim=True)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,rep", [(552, 3), (4096, 3), (777, 16)])
+def test_bf16_decode_p_rounding_stays_within_tolerance_h15(S, rep):
+    """The decode kernel's tensor-core route (bf16, Dh 64) rounds P the
+    same way: within ATTN_TOL[bf16] of the plain version at the serve
+    cache length, a longer cache and the most heads per kv group."""
+    gen = torch.Generator().manual_seed(S + rep)
+    B, KV, Dh = 2, 2, 64
+    q = torch.randn((B, KV, rep, Dh), generator=gen).to(torch.bfloat16)
+    kc, vc = (torch.randn((B, S, KV, Dh), generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    pos = torch.tensor([S - 1, S // 3], dtype=torch.int32)
+    got = _bf16_decode_model(q, kc, vc, pos)
+    want = decode_attention_plain(q, kc, vc, pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])

@@ -194,6 +194,43 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_the_model_layout_in_place(cuda_device,
+                                                                dtype):
+    """q, k, v as strided (B, S, H, Dh) views into fused projections, at
+    every head dim, ragged lengths, a window and a q offset: bf16 through
+    the tensor-core kernel, float32 through the CUDA-core one, each equal
+    to the plain version and to the folded (BH, S, Dh) call."""
+    gen = torch.Generator(cuda_device).manual_seed(13)
+    cases = [(2, 130, 130, 3, 64, True, 0, 0), (1, 77, 200, 2, 128, True, 0, 123),
+             (2, 100, 100, 2, 256, True, 17, 0), (3, 70, 70, 4, 64, False, 0, 0),
+             (1, 129, 300, 5, 128, True, 64, 171)]
+    before = flash_attention_cuda.launches
+    for B, Sq, Sk, H, Dh, causal, window, q_offset in cases:
+        xq, xkv = (torch.randn((B, S, 3, H, Dh), generator=gen, device=cuda_device)
+                   .to(dtype) for S in (Sq, Sk))
+        q, k, v = xq[:, :, 0], xkv[:, :, 1], xkv[:, :, 2]
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (B, Sq, H, Dh) and got.is_contiguous()
+        torch.testing.assert_close(got, flash_attention_plain(q, k, v, **kw),
+                                   rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+        def fold(x):
+            return x.transpose(1, 2).reshape(B * H, x.shape[1], Dh)
+
+        folded = flash_attention_cuda(fold(q), fold(k), fold(v), **kw)
+        torch.testing.assert_close(
+            folded.reshape(B, H, Sq, Dh).transpose(1, 2), got,
+            rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    assert flash_attention_cuda.launches == before + 2 * len(cases)
+    odd = torch.zeros((1, 8, 2, 72), dtype=dtype, device=cuda_device)[..., 2:66]
+    with pytest.raises(ValueError, match="16-byte aligned start"):
+        flash_attention_cuda(odd, odd, odd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(cuda_device, dtype):
     """Per-row positions over ragged caches, read in place from a stacked
     (L, B, S, KV, Dh) cache; positions past pos hold junk that must not
@@ -214,9 +251,45 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype):
         want = decode_attention_plain(q, kc, vc, pos)
         torch.testing.assert_close(got, want, rtol=ATTN_TOL[dtype],
                                    atol=ATTN_TOL[dtype])
+        # the tickets are back at 0 after every call and the merge sums in
+        # chunk order: repeated calls give the same bits
+        again = [decode_attention_cuda(q, kc, vc, pos) for _ in range(2)]
+        assert all(torch.equal(got, x) for x in again)
         kc[1, int(pos[1]) + 1:] = 1e4
         torch.testing.assert_close(decode_attention_cuda(q, kc, vc, pos), got)
-    assert decode_attention_cuda.launches == before + 2 * len(cases)
+    # one launch per call: ops, two repeats and the junk call per case
+    assert decode_attention_cuda.launches == before + 4 * len(cases)
     with pytest.raises(ValueError, match="strides"):
         decode_attention_cuda(q, kc.transpose(0, 1).contiguous().transpose(0, 1),
                               vc, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_on_two_streams_at_once(cuda_device, dtype):
+    """Calls in flight on two streams of one card at once: each stream has
+    its own ticket counters, so every group's merge runs once, in its own
+    call, and every output equals that of the same call run alone."""
+    gen = torch.Generator(cuda_device).manual_seed(13)
+    B, KV, rep, S, Dh = 8, 5, 3, 4096, 64
+    inputs = []
+    for _ in range(2):
+        q = torch.randn((B, KV, rep, Dh), generator=gen, device=cuda_device).to(dtype)
+        kc, vc = (torch.randn((B, S, KV, Dh), generator=gen,
+                              device=cuda_device).to(dtype) for _ in range(2))
+        pos = torch.randint(0, S, (B,), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+        inputs.append((q, kc, vc, pos))
+    alone = [decode_attention_cuda(*x) for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in inputs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, x) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                outs[i].append(decode_attention_cuda(*x))
+    torch.cuda.synchronize()
+    for want, got in zip(alone, outs):
+        assert all(torch.equal(want, g) for g in got)
