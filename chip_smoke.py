@@ -16,9 +16,12 @@ under ``attn_impl="pallas"``: every prefill layer is one
 launch). The attention kernels are held to their plain versions in both
 the folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one,
 and timed beside SDPA. It prints each kernel's ptxas registers and spills,
-counts each wrapper's device kernels per call in a profiler trace (one
-for each attention kernel, or it fails), times the kernels and ends with one JSON line ``{"ok": true, "device":
-{...}}``.
+counts each wrapper's device kernels per call in a profiler trace (one,
+and no other device operation, for each OLAF wrapper; one for each
+attention kernel; or it fails), times the kernels, and the fused
+``ops.olaf_forward`` boundary at the scenario's own shape beside the
+composition it replaced, and ends with one JSON line ``{"ok": true,
+"device": {...}}``.
 Any failed check raises and exits non-zero before that line. Without a
 CUDA card, or without the repository beside it, it fails.
 
@@ -162,7 +165,8 @@ def cycle_cost(state: TorchQueueState, b: Burst):
     one divide per element of a touched row.
 
     kernel bytes, what ``olaf_step.cu`` moves: every touched or popped slot
-    row read and written once, with the same burst, drained and metadata
+    row written once and read once unless a reset in the burst restarts it
+    (ROADMAP hazard H16), with the same burst, drained and metadata
     terms."""
     S, Q, D = state.payload.shape
     U = b.clusters.shape[1]
@@ -190,8 +194,9 @@ def cycle_cost(state: TorchQueueState, b: Burst):
         meta = 2 * Q * 25 + 2 * 5 * 4 + U * 18 + K * 21
         total_bytes += 4 * D * (len(contrib) + len(reads) + len(writes)
                                 + K) + meta
-        kernel_bytes += 4 * D * (len(contrib) + 2 * len(touched | popped)
-                                 + K) + meta
+        kernel_reads = (touched - set(last)) | (popped - touched)
+        kernel_bytes += 4 * D * (len(contrib) + len(kernel_reads)
+                                 + len(touched | popped) + K) + meta
         total_ops += D * (len(contrib) + len(weighed) + len(touched))
     return total_bytes, total_ops, kernel_bytes
 
@@ -371,10 +376,14 @@ COUNTED = {"olaf_step": olaf_step_cuda, "olaf_combine": olaf_combine_cuda,
 def reset_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+    olaf_combine_cuda.drain_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    """Launches per kernel; ``olaf_combine_drain`` counts the combine
+    kernel's drain-only boundaries (no window lands)."""
+    return {**{name: fn.launches for name, fn in COUNTED.items()},
+            "olaf_combine_drain": olaf_combine_cuda.drain_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +458,192 @@ def time_combine(args, reps):
     nbytes, nops, kbytes = combine_cost(*args)
     bound, by = bound_ms(nbytes, nops)
     return dict(ms=min(kernel, kernel2), ms_runs=[kernel, kernel2],
+                plain_ms=plain, bound_ms=bound, bound_by=by, bytes=nbytes,
+                ops=nops, kernel_bytes=kbytes)
+
+
+# ---------------------------------------------------------------------------
+# ops.olaf_forward: the fused boundary against the composition it replaced
+# ---------------------------------------------------------------------------
+class ForwardCapture:
+    """Wraps ``ops.olaf_forward`` while a ``with`` block runs, counts its
+    calls by window width U and keeps a copy of the last call's arguments
+    at each; ``args`` is that of the most common U, so that the boundary
+    can be checked and timed at the path's own shape."""
+
+    def __init__(self):
+        self.calls, self._last = {}, {}
+
+    def __enter__(self):
+        self._orig = orig = ops.olaf_forward
+
+        def wrapper(*a, **kw):
+            U = a[2].shape[1]
+            self.calls[U] = self.calls.get(U, 0) + 1
+            self._last[U] = tuple(
+                x.clone() if isinstance(x, torch.Tensor) else np.array(x)
+                for x in (*a, kw["drain_hop"]))
+            return orig(*a, **kw)
+
+        ops.olaf_forward = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        ops.olaf_forward = self._orig
+        return False
+
+    @property
+    def args(self):
+        return self._last[max(self.calls, key=self.calls.get)]
+
+
+def forward_composed(slots, counts, updates, clusters, gate, reset, sw, slot,
+                     hop):
+    """``ops.olaf_forward`` as it ran before the fusion: the reset mask,
+    the combine kernel, then the gather, clear and hop mask as PyTorch
+    ops, each host array put on the card by itself."""
+    dev = slots.device
+
+    def on(x, dtype):
+        return torch.as_tensor(x if isinstance(x, torch.Tensor)
+                               else np.asarray(x), dtype=dtype,
+                               device=dev).contiguous()
+
+    if updates.shape[1] > 0:
+        counts_in = torch.where(on(reset, torch.bool),
+                                torch.zeros((), dtype=counts.dtype, device=dev),
+                                counts)
+        slots, counts = olaf_combine_cuda(slots, counts_in, updates,
+                                          on(clusters, torch.int32),
+                                          on(gate, torch.int32))
+    else:
+        slots, counts = slots.clone(), counts.clone()
+    sw, slot = on(sw, torch.int64), on(slot, torch.int64)
+    drained = slots[sw, slot]
+    slots[sw, slot] = 0.0
+    counts[sw, slot] = 0
+    hops = on(hop, torch.int32)
+    drained = torch.where((hops >= -1)[:, None], drained,
+                          torch.zeros((), dtype=drained.dtype, device=dev))
+    return slots, counts, drained, hops
+
+
+def on_card(args, dev):
+    """A boundary's arguments with every host array already on the card,
+    in the kernel's dtypes."""
+    dtypes = (None, None, None, torch.int32, torch.int32, torch.bool,
+              torch.int32, torch.int32, torch.int32)
+    return tuple(x if dt is None else torch.as_tensor(
+        np.asarray(x) if not isinstance(x, torch.Tensor) else x, dtype=dt,
+        device=dev) for x, dt in zip(args, dtypes))
+
+
+def forward_operands(gen, dev, S, Q, U, D, sw, slot, hop, *, reset=None):
+    """A seeded boundary as the hybrid hands it to ``ops.olaf_forward``:
+    slots, counts and updates on the card, the window's small arrays and
+    the departures (``sw``, ``slot``, ``hop``) as numpy. ``reset`` names a
+    slot that restarts from this window and receives two of its rows."""
+    slots, counts, updates, clusters, gate = make_window(gen, dev, S, Q, U, D)
+    restart = (torch.rand((S, Q), generator=gen, device=dev) < 0.3).cpu().numpy()
+    clusters, gate = clusters.cpu().numpy(), gate.cpu().numpy()
+    if reset is not None:
+        restart[reset] = True
+        clusters[reset[0], :2], gate[reset[0], :2] = reset[1], 1
+    return (slots, counts, updates, clusters, gate, restart,
+            np.asarray(sw, np.int64), np.asarray(slot, np.int64),
+            np.asarray(hop, np.int32))
+
+
+def check_forward(name, args) -> float:
+    """The fused boundary (``ops.olaf_forward``) against its plain version
+    and, bitwise, against the composition it replaced."""
+    dev = args[0].device
+    slots, counts, updates, clusters, gate, reset, sw, slot, hop = on_card(
+        args, dev)
+    got = ops.olaf_forward(*args[:8], drain_hop=args[8])
+    want = olaf_combine_plain(slots, counts, updates, clusters, gate,
+                              reset=reset, drain_sw=sw, drain_slot=slot,
+                              drain_hop=hop)
+    old = forward_composed(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(got[1], want[1]), f"forward {name}: counts differ")
+    require(torch.equal(got[3], hop), f"forward {name}: hops differ")
+    err = 0.0
+    for g, w, what in ((got[0], want[0], "slots"), (got[2], want[2], "rows")):
+        diff = float((g - w).abs().max()) if g.numel() else 0.0
+        require(torch.allclose(g, w, rtol=RTOL, atol=ATOL),
+                f"forward {name}: {what} off by {diff}")
+        err = max(err, diff)
+    require(all(torch.equal(a, b) for a, b in zip(got, old)),
+            f"forward {name}: differs from the composition it replaced")
+    S, Q, D = slots.shape
+    log(f"[check] olaf_forward {name}: S={S} Q={Q} U={updates.shape[1]} "
+        f"D={D} K={sw.numel()} matches its plain version (max |err| "
+        f"{err:.3g}) and the old composition bitwise")
+    return err
+
+
+def forward_cost(slots, counts, updates, clusters, gate, reset, sw, slot,
+                 hop):
+    """(bytes, operations, kernel bytes) of one boundary. bytes, the least
+    it needs: 4·D·(contributing rows + slot rows read where the old value
+    weighs in or a popped slot departs untouched + slot rows written where
+    hits > 0 or popped + K departing rows) plus the small arrays read once
+    and the counts written once; operations as ``combine_cost``. kernel
+    bytes, what ``olaf_combine.cu`` moves: every slot row read and
+    written, the contributing rows and the departing rows."""
+    S, Q, D = slots.shape
+    U, K = updates.shape[1], sw.numel()
+    popped = torch.zeros((S, Q), dtype=torch.bool, device=slots.device)
+    popped[sw.long(), slot.long()] = True
+    meta = 4 * (2 * S * Q + 2 * S * U + 3 * K) + S * Q
+    if U == 0:
+        n_pop = int(popped.sum())
+        return 4 * D * (2 * n_pop + K) + meta, 0, 4 * D * (2 * S * Q + K) + meta
+    counts_in = torch.where(reset, torch.zeros_like(counts), counts)
+    inside = (clusters >= 0) & (clusters < Q)
+    contrib = int((inside & (gate != 0)).sum())
+    hits = torch.zeros((S, Q), dtype=torch.int64, device=slots.device)
+    flat = (torch.arange(S, device=slots.device)[:, None] * Q
+            + clusters.long().clamp(0, Q - 1))
+    hits.view(-1).index_add_(0, flat[inside], gate[inside].long())
+    touched = hits > 0
+    weighed = touched & (counts_in > 0)
+    reads = int((weighed | (popped & ~touched)).sum())
+    writes = int((touched | popped).sum())
+    nbytes = 4 * D * (contrib + reads + writes + K) + meta
+    ops_ = D * (2 * contrib + int(weighed.sum()) + 2 * int(touched.sum()))
+    return nbytes, ops_, 4 * D * (contrib + 2 * S * Q + K) + meta
+
+
+def time_forward(args, reps):
+    """Device ms of the fused boundary and of the composition it replaced,
+    in turns, from the hybrid's host arrays and from arrays already on the
+    card."""
+    staged = on_card(args, args[0].device)
+
+    def fused(a):
+        return ops.olaf_forward(*a[:8], drain_hop=a[8])
+
+    def composed(a):
+        return forward_composed(*a)
+
+    out = {}
+    for label, a in (("host", args), ("card", staged)):
+        runs = [time_ms(fn, lambda: a, reps) for fn in
+                (composed, fused, fused, composed)]
+        out[label] = dict(ms=min(runs[1:3]), composed_ms=min(runs[0], runs[3]),
+                          runs=runs)
+    slots, counts, updates, clusters, gate, reset, sw, slot, hop = staged
+    plain = time_ms(lambda a: olaf_combine_plain(
+        *a[:5], reset=a[5], drain_sw=a[6], drain_slot=a[7], drain_hop=a[8]),
+        lambda: staged, reps)
+    nbytes, nops, kbytes = forward_cost(*staged)
+    bound, by = bound_ms(nbytes, nops)
+    return dict(ms=out["card"]["ms"], composed_ms=out["card"]["composed_ms"],
+                host_ms=out["host"]["ms"],
+                host_composed_ms=out["host"]["composed_ms"],
+                runs=dict(card=out["card"]["runs"], host=out["host"]["runs"]),
                 plain_ms=plain, bound_ms=bound, bound_by=by, bytes=nbytes,
                 ops=nops, kernel_bytes=kbytes)
 
@@ -1035,22 +1230,44 @@ def main() -> int:
                                             2**20 + 3, 2, capacity=48,
                                             thr=0.5, screen_p=0.1)
     enq_err = max(enq_err_a, enq_err_b)
+    # ops.olaf_forward, the fused boundary: the scenario's shape (S=21 Q=8
+    # U=4 D=941 K=1) from the hybrid's host arrays and from arrays on the
+    # card, a drained slot the same window resets, hop -2 and a duplicate
+    # departure, and a drain-only boundary (U = 0)
+    fwd_host = forward_operands(gen, dev, 21, 8, 4, 941, [5], [3], [-1])
+    fwd_card = on_card(fwd_host, dev)
+    fwd_cases = dict(
+        scenario=fwd_host, scenario_on_card=fwd_card,
+        reset_drained=forward_operands(gen, dev, 3, 4, 8, 941, [1, 2, 1],
+                                       [2, 0, 2], [0, -2, 1], reset=(1, 2)),
+        drain_only=forward_operands(gen, dev, 21, 8, 0, 941, [4, 20],
+                                    [7, 0], [-1, 3]))
+    fwd_err = max(check_forward(name, a) for name, a in fwd_cases.items())
     # flash_attention and decode_attention at every listed shape, bf16 and f32
     attn_checked = check_attention(dev, gen)
     # device kernels per wrapper call, as the profiler traces them (the
     # wrapper's count adds one per call by construction and cannot show it),
     # before any large trace of the paths, after which the tracer loses
     # records
-    per_call = {
+    def forward(a):
+        return ops.olaf_forward(*a[:8], drain_hop=a[8])
+
+    ea_args = enqueue_args(b_ea)
+
+    per_call = {  # the trainer's drain: send, screen and capacity left out
         "olaf_step": launches_per_call(
-            lambda st: olaf_step_cuda(st, *b_a2.args()), pre_a2.clone,
+            lambda st: olaf_step_cuda(st, *b_a2.args()[:6]), pre_a2.clone,
             ("olaf_",)),
         "olaf_combine": launches_per_call(
             lambda a: olaf_combine_cuda(*a), lambda: comb["a U=4"],
             ("olaf_combine",)),
-        "olaf_enqueue": launches_per_call(
-            lambda st: olaf_enqueue_cuda(st, *enqueue_args(b_ea)),
-            pre_ea.clone, ("olaf_",))}
+        "olaf_enqueue": launches_per_call(  # args read back before the trace
+            lambda st: olaf_enqueue_cuda(st, *ea_args), pre_ea.clone,
+            ("olaf_",)),
+        "olaf_forward": launches_per_call(forward, lambda: fwd_card,
+                                          ("olaf_",)),
+        "olaf_forward host arrays": launches_per_call(
+            forward, lambda: fwd_host, ("olaf_",))}
     for dtype in ATTN_DTYPES:
         fx = attn_checked[("flash", "a", dtype)][1]
         dx = attn_checked[("decode", "a", dtype)][1]
@@ -1063,11 +1280,13 @@ def main() -> int:
         name = key if isinstance(key, str) else f"{key[0]} {str(key[1])[6:]}"
         log(f"[launches] {name}: {mine:g} kernel launch(es) and {other:g} "
             f"other device operation(s) per call (profiler, 5 calls)")
-        require(mine >= 1, f"{name}: the profiler traced no kernel of the "
-                f"call")
-        if not isinstance(key, str):
-            require(mine == 1, f"{name}: {mine:g} kernel launches per call, "
-                    f"not one")
+        require(mine == 1, f"{name}: {mine:g} kernel launches per call, "
+                f"not one")
+        if isinstance(key, str):  # the OLAF wrappers: nothing else on the card
+            most = 1 if key == "olaf_forward host arrays" else 0
+            require(other <= most, f"{name}: {other:g} other device "
+                    f"operations per call, more than {most} (the host "
+                    f"arrays' one copy)")
 
     # ---- 4. the main path: the trainer at the paper's model width ---------
     cfg = trainer_cfg()
@@ -1092,8 +1311,8 @@ def main() -> int:
         f"avg_aom={sim.avg_aom():.6f} "
         f"wall={wall:.3f}s worker_iters={n_iter} "
         f"iters/s={n_iter / wall:.3f} "
-        f"olaf_step calls={launches} (each 2 CUDA launches: resolve + "
-        f"payload); launch counts {trainer_counts}")
+        f"olaf_step calls={launches} (each one CUDA launch); launch counts "
+        f"{trainer_counts}")
     require(trainer._dim == 941, "the lander actor-critic is 941 floats")
     require(launches > 0, "the trainer's drains never launched the kernel")
     require(res.ps.applied > 0, "the PS applied no update")
@@ -1259,10 +1478,11 @@ def main() -> int:
     # ---- 4c. the scenario command: fat-tree k=4 at D = 941 ----------------
     reset_counts()
     t0 = time.perf_counter()
-    scen = launch_train.main(["--mode", "scenario", "--topology", "fattree",
-                              "--fattree-k", "4", "--sim-dim", "941",
-                              "--sim-impl", "window"])
-    torch.cuda.synchronize()
+    with ForwardCapture() as scen_fwd:
+        scen = launch_train.main(["--mode", "scenario", "--topology",
+                                  "fattree", "--fattree-k", "4", "--sim-dim",
+                                  "941", "--sim-impl", "window"])
+        torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     scenario_counts = read_counts()
     require(scenario_counts["olaf_combine"] == scen.launches > 0,
@@ -1272,7 +1492,11 @@ def main() -> int:
     require(all(bool(torch.isfinite(p).all()) and p.device.type == "cuda"
                 for _, _, p in scen.delivered), "scenario rows")
     log(f"[scenario] fat-tree k=4: {len(scen.switch_launches)} switches, "
-        f"wall {wall_s:.3f} s, launch counts {scenario_counts}")
+        f"wall {wall_s:.3f} s, launch counts {scenario_counts}, "
+        f"ops.olaf_forward calls by window width {scen_fwd.calls}")
+    require(sum(scen_fwd.calls.values()) > 0,
+            "the scenario never called ops.olaf_forward")
+    fwd_err = max(fwd_err, check_forward("scenario's own", scen_fwd.args))
 
     # ---- 4d. the enqueue entry point: a stream of bursts at D = 941 -------
     reset_counts()
@@ -1305,6 +1529,11 @@ def main() -> int:
     serve_counts = serve_phase(dev)
 
     # ---- 5. timing ---------------------------------------------------------
+    # the timer's floor: one kernel that adds 1 to one element, timed as
+    # every kernel below is (the small OLAF shapes sit a few µs above it)
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda _: one.add_(1), lambda: None, 50)
+    log(f"[time] timer floor: one-element add_ {floor_ms:.5f} ms")
     t_a = time_shape(pre_a2, b_a2, reps=50)
     t_a8 = time_shape(pre_a8, b_a8, reps=50)
     t_b = time_shape(pre_b, b_b, reps=5)
@@ -1333,6 +1562,18 @@ def main() -> int:
             f"plain {t['plain_ms']:.4f} ms bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}, {t['bytes']} B; the kernel moves "
             f"{t['kernel_bytes']} B)")
+    t_fwd = time_forward(scen_fwd.args, reps=50)
+    fwd_shape = ("S={} Q={} U={} D={} K={}".format(
+        *scen_fwd.args[0].shape[:2], scen_fwd.args[2].shape[1],
+        scen_fwd.args[0].shape[2], len(scen_fwd.args[6])))
+    log(f"[time] olaf_forward {fwd_shape} (the scenario's): fused "
+        f"{t_fwd['ms']:.4f} ms, the old composition {t_fwd['composed_ms']:.4f} "
+        f"ms (arrays on the card; runs {t_fwd['runs']['card']}); from the "
+        f"hybrid's host arrays fused {t_fwd['host_ms']:.4f} ms, composition "
+        f"{t_fwd['host_composed_ms']:.4f} ms (runs {t_fwd['runs']['host']}); "
+        f"plain {t_fwd['plain_ms']:.4f} ms bound {t_fwd['bound_ms']:.6f} ms "
+        f"({t_fwd['bound_by']}, {t_fwd['bytes']} B; the kernel moves "
+        f"{t_fwd['kernel_bytes']} B)")
     attn_times = time_attention(attn_checked, reps=10)
     log(f"[time] total smoke wall {time.perf_counter() - t_start:.1f} s")
     paths = dict(trainer=trainer_counts, hybrid_ppo=hybrid_counts,
@@ -1363,12 +1604,13 @@ def main() -> int:
                         plain_ms=t_a8["plain_ms"], bound_ms=t_a8["bound_ms"],
                         bytes=t_a8["bytes"],
                         kernel_bytes=t_a8["kernel_bytes"]),
-        launches_by_path=by_path("olaf_step"))
+        timer_floor_ms=floor_ms, launches_by_path=by_path("olaf_step"))
     combine_entry = dict(
         name="olaf_combine", route="cuda",
         source="src/repro_torch/kernels/csrc/olaf_combine.cu",
         replaces="src/repro/kernels/olaf_combine.py:95",
-        launches=hybrid_counts["olaf_combine"], max_abs_err=comb_err,
+        launches=hybrid_counts["olaf_combine"],
+        max_abs_err=max(comb_err, fwd_err),
         ms=t_ca[4]["ms"], plain_ms=t_ca[4]["plain_ms"],
         bound_ms=t_ca[4]["bound_ms"], bound_by=t_ca[4]["bound_by"],
         library_ms=None, library_note=no_library,
@@ -1381,6 +1623,19 @@ def main() -> int:
         fattree=dict(shape="S=21 Q=8 U=64 D=262147", **{
             k: t_cb[k] for k in ("ms", "plain_ms", "bound_ms", "bytes",
                                  "kernel_bytes")}),
+        forward=dict(
+            entry="ops.olaf_forward, the whole boundary in the same kernel",
+            shape=f"{fwd_shape} (the scenario's)", max_abs_err=fwd_err,
+            calls_in_scenario=sum(scen_fwd.calls.values()),
+            cuda_launches_per_call=per_call["olaf_forward"][0],
+            other_device_ops_per_call=per_call["olaf_forward"][1],
+            host_arrays_other_device_ops_per_call=per_call[
+                "olaf_forward host arrays"][1],
+            **{k: t_fwd[k] for k in ("ms", "composed_ms", "host_ms",
+                                     "host_composed_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "bytes",
+                                     "kernel_bytes")}),
+        drain_only_launches_by_path=by_path("olaf_combine_drain"),
         launches_by_path=by_path("olaf_combine"))
     enqueue_entry = dict(
         name="olaf_enqueue", route="cuda",

@@ -581,18 +581,7 @@ class HybridMultiSwitchDataPlane:
         self.h2d_transfers += 3  # clusters + gate + reset-mask window puts
         self.launches += 1
         drained: Optional[torch.Tensor] = None
-        if self.sharded:
-            reset = torch.from_numpy(reset_mask).to(dev)
-            counts_in = torch.where(reset, torch.zeros((), dtype=torch.int32,
-                                                       device=dev),
-                                    self.counts_dev)
-            self.slots_dev, self.counts_dev = ops.olaf_combine_multi(
-                self.slots_dev, counts_in, updates,
-                torch.from_numpy(clusters).to(dev),
-                torch.from_numpy(gate).to(dev))
-            if drain is not None:
-                drained = self._drain_only(*drain)
-        elif drain is not None:
+        if drain is not None and not self.sharded:
             s, slot = drain
             self.h2d_transfers += 1  # drain (switch, slot, hop) index put
             self.forward_launches += 1
@@ -606,6 +595,8 @@ class HybridMultiSwitchDataPlane:
             self.slots_dev, self.counts_dev = ops.olaf_combine_window(
                 self.slots_dev, self.counts_dev, updates, clusters, gate,
                 reset_mask)
+            if drain is not None:  # the sharded path departs after landing
+                drained = self._drain_only(*drain)
         return drained
 
     def _scatter(self, staged: torch.Tensor, sel_idx: List[int],

@@ -4,6 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` beside this file,
 at first use; the hash covers the source and the flags, so an edited source
 is rebuilt. Nothing is built or imported when this module is imported.
+Also keeps the ticket counters the kernels that count their blocks share
+(:func:`tickets`).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -88,3 +92,20 @@ def load(name: str) -> ctypes.CDLL:
     if not out.exists():
         build_all()
     return ctypes.CDLL(str(out))
+
+
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """The int32 ticket counters of the current stream of ``dev``, at least
+    ``n``, zeroed once when made on that stream. A kernel that takes
+    tickets leaves them at 0 (the last block of each group resets its
+    own), so calls in the stream's order reuse them, kernels of different
+    sources included, and calls on two streams at once never share one."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                        device=dev)
+    return t

@@ -24,10 +24,11 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (SUPPORTED_DTYPES,
                                                  SUPPORTED_HEAD_DIMS)
 
@@ -51,7 +52,6 @@ class _Args(ctypes.Structure):
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels import _build
     lib = _build.load("decode_attention")
     lib.decode_attention_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
     lib.decode_attention_launch.restype = ctypes.c_int
@@ -135,22 +135,6 @@ def _check_plan(plan: DecodePlan, rep: int, Dh: int, S: int) -> None:
                          f"merges at most {most} for rep={rep}")
 
 
-_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _tickets(dev: torch.device, n: int) -> torch.Tensor:
-    """The ticket counters of the current stream of ``dev``, at least
-    ``n``, zeroed once when made on that stream: every call leaves them at
-    0 (the merging block resets its group's), so calls in the stream's
-    order reuse them, and calls on two streams at once never share one."""
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
-                                        device=dev)
-    return t
-
-
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, pos: torch.Tensor
                           ) -> torch.Tensor:
@@ -205,7 +189,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B * KV, nsplit, rep, Dh), dtype=torch.float32,
                            device=dev)
-    tickets = _tickets(dev, plan.tickets)
+    tickets = _build.tickets(dev, plan.tickets)
     sb, ss, skv, _ = k_cache.stride()
     args = _Args(B=B, S=S, KV=KV, rep=rep, Dh=Dh, chunk=plan.chunk,
                  nsplit=nsplit, warps=plan.warps,

@@ -2,10 +2,10 @@
 
 Port of the Pallas TPU kernel ``repro/kernels/olaf_combine.py::
 olaf_enqueue_pallas`` (body ``_enqueue_kernel``), the enqueue-only half of
-the ``olaf_step`` cycle: :func:`olaf_enqueue_cuda` runs the resolve and
-payload launches of ``csrc/olaf_step.cu`` with no drain (K = 0) and every
-row sent, through that file's ``olaf_enqueue_launch``, and counts its own
-launches. :func:`olaf_enqueue_plain` is its plain PyTorch version,
+the ``olaf_step`` cycle: :func:`olaf_enqueue_cuda` runs the one launch of
+``csrc/olaf_step.cu`` with no drain (K = 0) and every row sent, through
+that file's ``olaf_enqueue_launch``, and counts its own launches.
+:func:`olaf_enqueue_plain` is its plain PyTorch version,
 ``repro_torch.core.olaf_queue.enqueue_burst`` (the counterpart of
 ``repro``'s ``jax_enqueue_burst``, the oracle of the Pallas kernel).
 """

@@ -1,24 +1,27 @@
 """The fused OLAF data-plane cycle (burst enqueue → drain-k) on the card.
 
 Port of the Pallas TPU kernel ``repro/kernels/olaf_step.py::olaf_step_pallas``
-as a hand-written CUDA kernel for Hopper (``csrc/olaf_step.cu``: a resolve
-launch with one warp per queue, then a column-parallel payload launch; the
-source says why). :func:`olaf_step_cuda` launches it on CUDA tensors and
-counts its launches; :func:`olaf_step_plain` is its plain PyTorch version
-(the composition in ``repro_torch.core.olaf_queue``), which the CPU path and
-the on-card comparison use.
+as a hand-written CUDA kernel for Hopper (``csrc/olaf_step.cu``: one launch
+per call; every block resolves its queue's burst in shared memory and then
+walks column tiles of the payload, and the last block of each queue writes
+the metadata back; the source says why). :func:`olaf_step_cuda` launches it
+on CUDA tensors and counts its launches; :func:`olaf_step_plain` is its
+plain PyTorch version (the composition in ``repro_torch.core.olaf_queue``),
+which the CPU path and the on-card comparison use.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+import numbers
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import olaf_queue
 from repro_torch.core.olaf_queue import TorchQueueState
+from repro_torch.kernels import _build
 
 _SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block gets by default
 
@@ -26,7 +29,7 @@ _SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block gets by default
 class _Args(ctypes.Structure):
     """``struct OlafStepArgs`` of ``csrc/olaf_step.cu``, field for field."""
 
-    _fields_ = ([(n, ctypes.c_int) for n in ("S", "Q", "U", "D", "K")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("S", "Q", "U", "D", "K", "cap")]
                 + [("thr", ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in (
                     "cluster", "worker", "seq", "gen_time", "reward",
@@ -36,22 +39,19 @@ class _Args(ctypes.Structure):
                     "u_send", "u_screen", "u_payload",
                     "d_valid", "d_cluster", "d_worker", "d_agg_count",
                     "d_gen_time", "d_reward", "d_payload", "n_valid",
-                    "slot_base", "slot_off", "slot_upd", "slot_drow")])
+                    "tickets")])
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels import _build
     lib = _build.load("olaf_step")
     for fn in (lib.olaf_step_launch, lib.olaf_enqueue_launch):
         fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.olaf_step_error_string.argtypes = [ctypes.c_int]
     lib.olaf_step_error_string.restype = ctypes.c_char_p
-    for fn in (lib.olaf_step_resolve_smem, lib.olaf_step_payload_smem):
-        fn.restype = ctypes.c_size_t
-    lib.olaf_step_resolve_smem.argtypes = [ctypes.c_int] * 2
-    lib.olaf_step_payload_smem.argtypes = [ctypes.c_int] * 3
+    lib.olaf_step_smem_words.argtypes = [ctypes.c_int] * 3
+    lib.olaf_step_smem_words.restype = ctypes.c_size_t
     return lib
 
 
@@ -76,15 +76,18 @@ def _check(op: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{op}: {name} must be contiguous")
 
 
-def _launch_cycle(entry: str, state: TorchQueueState, clusters, workers,
-                  gen_times, rewards, payloads, k: int, reward_threshold,
-                  send, capacity, screen):
-    """Check, cast and launch one ``csrc/olaf_step.cu`` entry point
-    (``olaf_step_launch``, or ``olaf_enqueue_launch`` with ``k == 0`` and
-    no ``send``) on the queue's CUDA device; the queue is updated in place.
-    Returns ``(state, out)``, ``out`` holding the drained rows (none with
-    ``k == 0``). Counts nothing: each public wrapper counts its own."""
-    name = entry[:-len("_launch")]
+def cycle_operands(name: str, state: TorchQueueState, clusters, workers,
+                   gen_times, rewards, payloads, k: int, send, capacity,
+                   screen) -> Tuple[TorchQueueState, Dict[str, Optional[torch.Tensor]],
+                                    Dict[str, int]]:
+    """The checked operands of one ``csrc/olaf_step.cu`` launch on the
+    queue's device, which may be the CPU here: ``(state, burst, sizes)``
+    with a leading S axis on every tensor (views of the caller's for one
+    queue), ``burst`` the kernel's ``u_*`` operands and ``capacity``, and
+    ``sizes`` its ``S, Q, U, D, K, cap``. An omitted ``send``, ``screen``
+    or ``capacity``, and a Python int ``capacity``, makes no tensor: the
+    kernel reads a null pointer as every row sent, none screened, and
+    ``cap`` (Q, or the int) for every queue."""
     dev = state.payload.device
     operands = dict(clusters=clusters, workers=workers, gen_times=gen_times,
                     rewards=rewards, payloads=payloads, send=send,
@@ -93,55 +96,65 @@ def _launch_cycle(entry: str, state: TorchQueueState, clusters, workers,
         if isinstance(v, torch.Tensor) and v.device != dev:
             raise ValueError(f"{name}: {n} is on {v.device}, the queue "
                              f"on {dev}: operands on more than one device")
-    if dev.type != "cuda":
-        raise ValueError(f"{name}_cuda needs CUDA tensors, got {dev}")
-    squeeze = state.payload.dim() == 2
-    st = state
-    if squeeze:  # views: the in-place update reaches the caller's tensors
-        st = TorchQueueState(**{n: v.unsqueeze(0)
-                                for n, v in state.fields().items()})
+    if state.payload.dim() == 2:  # views: the in-place update reaches the caller
+        state = TorchQueueState(**{n: v.unsqueeze(0)
+                                   for n, v in state.fields().items()})
         clusters, workers, gen_times, rewards, payloads = (
             x.unsqueeze(0) for x in (clusters, workers, gen_times, rewards,
                                      payloads))
         send = None if send is None else send.unsqueeze(0)
         screen = None if screen is None else screen.unsqueeze(0)
-    S, Q, D = st.payload.shape
+    S, Q, D = state.payload.shape
     U = clusters.shape[-1]
-    K = min(int(k), Q)
-    for n, v in st.fields().items():
+    for n, v in state.fields().items():
         shape = (S, Q, D) if n == "payload" else (
             (S,) if v.dim() == 1 else (S, Q))
         _check(name, n, v, _STATE_DTYPES[n], shape, dev)
-    ints = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-    floats = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
-    bools = lambda x: torch.as_tensor(x, dtype=torch.bool, device=dev)  # noqa: E731
-    burst = dict(
-        u_cluster=ints(clusters).contiguous(),
-        u_worker=ints(workers).contiguous(),
-        u_gen_time=floats(gen_times).contiguous(),
-        u_reward=floats(rewards).contiguous(),
-        u_send=(None if entry == "olaf_enqueue_launch" else
-                torch.ones((S, U), dtype=torch.bool, device=dev)
-                if send is None else bools(send).contiguous()),
-        u_screen=(torch.zeros((S, U), dtype=torch.bool, device=dev)
-                  if screen is None else bools(screen).contiguous()),
-        u_payload=floats(payloads).contiguous(),
-    )
+
+    def cast(x, dtype):
+        return None if x is None else torch.as_tensor(
+            x, dtype=dtype, device=dev).contiguous()
+
+    burst = dict(u_cluster=cast(clusters, torch.int32),
+                 u_worker=cast(workers, torch.int32),
+                 u_gen_time=cast(gen_times, torch.float32),
+                 u_reward=cast(rewards, torch.float32),
+                 u_send=cast(send, torch.bool),
+                 u_screen=cast(screen, torch.bool),
+                 u_payload=cast(payloads, torch.float32))
     for n, v in burst.items():
         if v is not None:
             _check(name, n, v, v.dtype,
                    (S, U, D) if n == "u_payload" else (S, U), dev)
-    if capacity is None or isinstance(capacity, int):
-        # a fill on the device: a host scalar would be a blocking copy
-        cap = torch.full((S,), Q if capacity is None else capacity,
-                         dtype=torch.int32, device=dev)
-    else:
-        cap = ints(capacity).expand(S).contiguous()
+    cap = Q
+    if isinstance(capacity, numbers.Integral):
+        cap = int(capacity)
+    elif capacity is not None:
+        burst["capacity"] = cast(capacity, torch.int32).expand(S).contiguous()
+    burst.setdefault("capacity", None)
+    return state, burst, dict(S=S, Q=Q, U=U, D=D, K=min(int(k), Q), cap=cap)
 
+
+def _launch_cycle(entry: str, state: TorchQueueState, clusters, workers,
+                  gen_times, rewards, payloads, k: int, reward_threshold,
+                  send, capacity, screen):
+    """Check and launch one ``csrc/olaf_step.cu`` entry point
+    (``olaf_step_launch``, or ``olaf_enqueue_launch`` with ``k == 0`` and
+    no ``send``) on the queue's CUDA device; the queue is updated in place.
+    Returns ``(state, out)``, ``out`` holding the drained rows (none with
+    ``k == 0``). Counts nothing: each public wrapper counts its own."""
+    name = entry[:-len("_launch")]
+    dev = state.payload.device
+    st, burst, sz = cycle_operands(name, state, clusters, workers, gen_times,
+                                   rewards, payloads, k, send, capacity,
+                                   screen)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}_cuda needs CUDA tensors, got {dev}")
+    S, Q, D, K = sz["S"], sz["Q"], sz["D"], sz["K"]
     lib = _lib()
-    smem = (lib.olaf_step_resolve_smem(Q, U), lib.olaf_step_payload_smem(Q, U, K))
-    if max(smem) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: Q={Q}, U={U} needs {max(smem)} B of "
+    smem = 4 * lib.olaf_step_smem_words(Q, sz["U"], K)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: Q={Q}, U={sz['U']} needs {smem} B of "
                          f"shared memory per block, over {_SMEM_LIMIT}")
     empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
     drain = entry == "olaf_step_launch"
@@ -155,30 +168,26 @@ def _launch_cycle(entry: str, state: TorchQueueState, clusters, workers,
         d_payload=empty((S, K, D), torch.float32),
         n_valid=empty((S,), torch.int32),
     )
-    scratch = dict(slot_base=empty((S, Q), torch.int32),
-                   slot_off=empty((S, Q + 1), torch.int32),
-                   slot_upd=empty((S, max(U, 1)), torch.int32),
-                   slot_drow=empty((S, Q), torch.int32))
     ptrs = {**{n: v.data_ptr() for n, v in st.fields().items()},
             **{n: None if v is None else v.data_ptr()
                for n, v in burst.items()},
-            **{n: v.data_ptr() for n, v in out_t.items()},
-            **{n: v.data_ptr() for n, v in scratch.items()},
-            "capacity": cap.data_ptr()}
-    args = _Args(S=S, Q=Q, U=U, D=D, K=K, thr=float(reward_threshold), **ptrs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(ctypes.byref(args), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({lib.olaf_step_error_string(rc).decode()})")
+            **{n: v.data_ptr() for n, v in out_t.items()}}
+    args = _Args(**sz, thr=float(reward_threshold), **ptrs)
+    if S > 0:
+        with torch.cuda.device(dev):
+            args.tickets = _build.tickets(dev, S).data_ptr()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = getattr(lib, entry)(ctypes.byref(args), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                               f"({lib.olaf_step_error_string(rc).decode()})")
     if not drain:
         return state, {}
     out = dict(valid=out_t["d_valid"], n_valid=out_t["n_valid"],
                cluster=out_t["d_cluster"], worker=out_t["d_worker"],
                gen_time=out_t["d_gen_time"], reward=out_t["d_reward"],
                agg_count=out_t["d_agg_count"], payload=out_t["d_payload"])
-    if squeeze:
+    if state.payload.dim() == 2:
         out = {n: v[0] for n, v in out.items()}
     return state, out
 

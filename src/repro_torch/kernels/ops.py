@@ -13,7 +13,6 @@ from __future__ import annotations
 import math
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.olaf_queue import TorchQueueState, expire_inactive_drains
@@ -22,7 +21,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,
-                                              olaf_combine_plain)
+                                              olaf_combine_plain,
+                                              stage_window)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,
                                               olaf_enqueue_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain
@@ -42,16 +42,6 @@ def _route(op: str, dev: torch.device, cuda_fn, plain_fn):
     if dev.type == "cpu":
         return plain_fn
     raise ValueError(f"{op}: no kernel for device {dev}")
-
-
-def _on(x, dev: torch.device, dtype) -> torch.Tensor:
-    """``x`` (a tensor on ``dev`` or host data) as a contiguous ``dtype``
-    tensor on ``dev``; a tensor on another device raises."""
-    if isinstance(x, torch.Tensor) and x.device != dev:
-        raise ValueError(f"operand on {x.device}, the slots on {dev}: "
-                         f"operands on more than one device")
-    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
-                           else x, dtype=dtype, device=dev).contiguous()
 
 
 def olaf_combine(slots, counts, updates, clusters, gate
@@ -84,17 +74,17 @@ def olaf_combine_window(slots, counts, updates, clusters, gate, reset_slots
     """Window-batched combine for the hybrid replay: one whole transmission
     window — ``updates`` (S, U, D), ``clusters``/``gate`` (S, U) and
     ``reset_slots`` (S, Q) bool, the last three host (numpy) buffers or
-    tensors on the slots' device — in one :func:`olaf_combine_multi`
-    launch. ``gate`` carries each entry's weight with non-contributing
-    entries already 0; a slot in ``reset_slots`` restarts from this
-    window, so its count enters the combine at 0."""
-    dev = slots.device
-    reset = _on(reset_slots, dev, torch.bool)
-    counts_in = torch.where(reset, torch.zeros((), dtype=counts.dtype,
-                                               device=dev), counts)
-    return olaf_combine_multi(slots, counts_in, updates,
-                              _on(clusters, dev, torch.int32),
-                              _on(gate, dev, torch.int32))
+    tensors on the slots' device — in one combine. ``gate`` carries each
+    entry's weight with non-contributing entries already 0; a slot in
+    ``reset_slots`` restarts from this window, so its count enters the
+    combine at 0. On a card this is one kernel launch, and the host
+    buffers reach the card in one copy."""
+    dev = _device_of(slots, counts, updates, op="olaf_combine_window")
+    fn = _route("olaf_combine_window", dev, olaf_combine_cuda,
+                olaf_combine_plain)
+    w = stage_window(dev, clusters=clusters, gate=gate, reset=reset_slots)
+    return fn(slots, counts, updates, w["clusters"], w["gate"],
+              reset=w["reset"])
 
 
 def olaf_forward(slots, counts, updates, clusters, gate, reset_slots,
@@ -109,25 +99,21 @@ def olaf_forward(slots, counts, updates, clusters, gate, reset_slots,
     when ``drain_hop`` (K,) is given (next hop: a switch index, -1 = PS,
     -2 = dropped); a row with ``hop < -1`` is zeroed. The drained rows are
     copies, never views of the slot buffer. The passed-in tensors are not
-    modified.
+    modified. On a card the whole boundary is one kernel launch, and the
+    host index arrays reach the card in one copy.
     """
-    dev = slots.device
-    if updates.shape[1] > 0:
-        slots, counts = olaf_combine_window(slots, counts, updates, clusters,
-                                            gate, reset_slots)
-    else:
-        slots, counts = slots.clone(), counts.clone()
-    sw = _on(drain_sw, dev, torch.int64)
-    slot = _on(drain_slot, dev, torch.int64)
-    drained = slots[sw, slot]  # advanced indexing: a copy, (K, D)
-    slots[sw, slot] = 0.0  # the combine's own fresh buffers
-    counts[sw, slot] = 0
+    dev = _device_of(slots, counts, updates, op="olaf_forward")
+    fn = _route("olaf_forward", dev, olaf_combine_cuda, olaf_combine_plain)
+    w = stage_window(dev, clusters=clusters, gate=gate, reset=reset_slots,
+                     drain_sw=drain_sw, drain_slot=drain_slot,
+                     drain_hop=drain_hop)
+    slots, counts, drained = fn(
+        slots, counts, updates, w["clusters"], w["gate"], reset=w["reset"],
+        drain_sw=w["drain_sw"], drain_slot=w["drain_slot"],
+        drain_hop=w["drain_hop"])
     if drain_hop is None:
         return slots, counts, drained
-    hops = _on(drain_hop, dev, torch.int32)
-    drained = torch.where((hops >= -1)[:, None], drained,
-                          torch.zeros((), dtype=drained.dtype, device=dev))
-    return slots, counts, drained, hops
+    return slots, counts, drained, w["drain_hop"]
 
 
 def olaf_enqueue(state: TorchQueueState, clusters, workers, gen_times,

@@ -154,6 +154,47 @@ def test_forward_matches_repro(U, with_hop):
     assert got[2].abs().sum() > 0
 
 
+@pytest.mark.parametrize("case", ["drained_slot_reset", "drain_only",
+                                  "hop_minus_two", "all_gates_zero"])
+def test_fused_forward_plain_matches_repro(case):
+    """The fused forward's plain version (``olaf_combine_plain`` with a
+    reset mask and a drain, what ``ops.olaf_forward`` runs on the CPU)
+    against ``repro``'s ``ops.olaf_forward``: a drained slot that the same
+    window resets, a drain-only boundary (U = 0, nothing lands, the reset
+    mask is not applied), hop -2 (the row is zeroed) and a window whose
+    gates are all zero (every slot rewritten as x·c/c, then drained)."""
+    rng = np.random.default_rng(60 + len(case))
+    S, Q, U = 3, 4, 0 if case == "drain_only" else 8
+    slots, counts, updates, clusters, gate, reset = _window(rng, S, Q, U, D)
+    if case == "all_gates_zero":
+        gate[:] = 0
+    sw = np.array([1, 0, 2], np.int32)
+    slot = np.array([2, 0, 3], np.int32)
+    hop = np.array([-1, 0, -2 if case == "hop_minus_two" else 1], np.int32)
+    if case in ("drained_slot_reset", "drain_only"):
+        reset[1, 2] = reset[2, 3] = True
+        clusters[1, :2], gate[1, :2] = 2, 1  # the reset slot drains its window
+    want = jax_ops.olaf_forward(*_j(slots, counts, updates), clusters, gate,
+                                reset, sw, slot, hop, tile_q=4,
+                                interpret=True)
+    got = olaf_combine_plain(*_t(slots, counts, updates, clusters, gate),
+                             reset=torch.from_numpy(reset),
+                             drain_sw=torch.from_numpy(sw),
+                             drain_slot=torch.from_numpy(slot),
+                             drain_hop=torch.from_numpy(hop))
+    _assert_combine(want[:2], got[:2], case)
+    np.testing.assert_allclose(np.asarray(want[2]), got[2].numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert not got[0][sw, slot].any() and not got[1][sw, slot].any()
+    if case == "hop_minus_two":
+        assert not got[2][2].any()
+    if case == "drain_only":  # nothing landed: the other slots as they were
+        keep = np.ones((S, Q), bool)
+        keep[sw, slot] = False
+        np.testing.assert_array_equal(got[0].numpy()[keep], slots[keep])
+        np.testing.assert_array_equal(got[1].numpy()[keep], counts[keep])
+
+
 def test_nan_row_stays_in_its_slot_h9():
     """H9: repro's one-hot product spreads one NaN element to every slot
     (0·NaN); the port's segment sum keeps it in the slot the row names, and

@@ -48,7 +48,8 @@ def _burst(rng, S, U, D, n_clusters, t0, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,Q,U,k,cap", [(1, 8, 8, 2, 8), (3, 64, 96, 16, 48),
-                                         (2, 8, 0, 4, 8), (1, 4, 12, 9, 4)])
+                                         (2, 8, 0, 4, 8), (1, 4, 12, 9, 4),
+                                         (2, 96, 130, 8, 70)])
 def test_kernel_matches_plain(cuda_device, S, Q, U, k, cap):
     """Exact on metadata and drain fields, payloads within rtol=1e-5,
     atol=1e-6 (the kernel sums the telescoped mean in another order)."""
@@ -155,6 +156,222 @@ def test_hybrid_backends_bitwise_on_the_card(cuda_device):
         assert t0 == t1 and u0.agg_count == u1.agg_count
         assert p0.device.type == "cuda" and torch.equal(p0, p1)
     np.testing.assert_array_equal(event.final_counts, window.final_counts)
+
+
+def _device_ops_per_call(call, setup, calls=4, markers=4):
+    """(kernels named ``olaf``, memory copies, other device operations) per
+    call of ``call(setup())``, as ``torch.profiler`` traces ``calls``
+    calls after one outside the trace. Spin kernels fence the calls, and a
+    trace that lost one of them is taken again."""
+    for _ in range(4):
+        inputs = [setup() for _ in range(calls + 1)]
+        call(inputs[0])
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(markers):
+                torch.cuda._sleep(1000)
+            for x in inputs[1:]:
+                call(x)
+            for _ in range(markers):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum("spin_kernel" in n for n in names) == 2 * markers:
+            break
+    else:
+        pytest.fail("the profiler lost a marker kernel in every trace")
+    mine = sum("olaf" in n for n in names)
+    copies = sum("Memcpy" in n for n in names)
+    other = len(names) - mine - copies - 2 * markers
+    return mine / calls, copies / calls, other / calls
+
+
+def _forward_operands(rng, dev, S=21, Q=8, U=16, D=941, host=False):
+    """A forwarding boundary: device slots, counts and updates; the window's
+    small arrays on the device, or as numpy (the hybrid's host buffers)."""
+    small = dict(clusters=rng.integers(-1, Q + 1, (S, U)).astype(np.int32),
+                 gate=rng.integers(0, 4, (S, U)).astype(np.int32),
+                 reset_slots=rng.random((S, Q)) < 0.3,
+                 drain_sw=np.array([3, 0], np.int32),
+                 drain_slot=np.array([5, 1], np.int32),
+                 drain_hop=np.array([-1, -2], np.int32))
+    if not host:
+        small = {n: torch.from_numpy(a).to(dev) for n, a in small.items()}
+    big = (torch.from_numpy(rng.normal(size=(S, Q, D)).astype(np.float32)),
+           torch.from_numpy(rng.integers(0, 6, (S, Q)).astype(np.int32)),
+           torch.from_numpy(rng.normal(size=(S, U, D)).astype(np.float32)))
+    return tuple(t.to(dev) for t in big), small
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["olaf_step", "olaf_enqueue",
+                                     "olaf_combine", "olaf_forward",
+                                     "olaf_forward_host"])
+def test_olaf_wrappers_are_one_kernel_per_call(cuda_device, wrapper):
+    """One kernel and no other device operation per call: the trainer's
+    drain (``send``, ``screen`` and ``capacity`` left out), the enqueue,
+    the combine and a whole forwarding boundary. From numpy index arrays
+    the boundary adds exactly one copy (one pinned staging buffer)."""
+    rng = np.random.default_rng(17)
+    if wrapper in ("olaf_step", "olaf_enqueue"):
+        Q, U, D = 8, 8, 941
+        st = queue_init(Q, D, device=cuda_device)
+        burst = tuple(a[0] for a in _burst(rng, 1, U, D, 2 * Q, 0.0,
+                                           cuda_device))
+        if wrapper == "olaf_step":
+            def call(x):
+                olaf_step_cuda(x, *burst, 2)
+        else:
+            def call(x):
+                olaf_enqueue_cuda(x, *burst)
+        mine, copies, other = _device_ops_per_call(call, st.clone)
+    elif wrapper == "olaf_combine":
+        (sl, cn, up), small = _forward_operands(rng, cuda_device)
+        mine, copies, other = _device_ops_per_call(
+            lambda _: olaf_combine_cuda(sl, cn, up, small["clusters"],
+                                        small["gate"]), lambda: None)
+    else:
+        host = wrapper == "olaf_forward_host"
+        (sl, cn, up), small = _forward_operands(rng, cuda_device, host=host)
+        mine, copies, other = _device_ops_per_call(
+            lambda _: ops.olaf_forward(sl, cn, up, **small), lambda: None)
+        assert copies == (1 if host else 0)
+        copies = 0
+    assert (mine, copies, other) == (1, 0, 0)
+
+
+@pytest.mark.cuda
+def test_olaf_step_calls_are_bitwise_equal(cuda_device):
+    """Many blocks per queue (a ticket per queue, reset by the last block):
+    the same cycle run again and again gives the same bits, and equals the
+    plain version."""
+    rng = np.random.default_rng(21)
+    S, Q, U, D, k = 3, 16, 40, 2**16 + 3, 5
+    st = TorchQueueState.stack([queue_init(Q, D, device=cuda_device)] * S)
+    for trial in range(2):  # a second burst lands on a filled queue
+        args = _burst(rng, S, U, D, 2 * Q, float(trial), cuda_device)
+        want = olaf_step_plain(st, *args, k, 0.5)
+        runs = [olaf_step_cuda(st.clone(), *args, k, 0.5) for _ in range(3)]
+        torch.cuda.synchronize()
+        for got in runs:
+            for f in META_FIELDS:
+                assert torch.equal(getattr(want[0], f), getattr(got[0], f)), f
+            for f in OUT_EXACT:
+                assert torch.equal(want[1][f], got[1][f]), f
+            torch.testing.assert_close(got[0].payload, want[0].payload,
+                                       rtol=1e-5, atol=1e-6)
+            assert torch.equal(got[0].payload, runs[0][0].payload)
+            assert torch.equal(got[1]["payload"], runs[0][1]["payload"])
+        st = want[0]
+
+
+@pytest.mark.cuda
+def test_reset_slot_does_not_read_its_old_row_h16(cuda_device):
+    """H16: a slot that a reset in the burst restarts is not read. A NaN
+    in its old row reaches the plain version (old·0 + row) and not the
+    kernels, which give the contributing rows' mean; every other field and
+    row is the same, and the drained row carries the kernel's value."""
+    D = 1031
+    gen = torch.Generator(cuda_device).manual_seed(16)
+
+    def update(cluster, worker, t):
+        def col(x, dt):
+            return torch.tensor([x], dtype=dt, device=cuda_device)
+        return (col(cluster, torch.int32), col(worker, torch.int32),
+                col(t, torch.float32), col(0.5, torch.float32),
+                torch.randn((1, D), generator=gen, device=cuda_device))
+
+    st = olaf_enqueue_plain(queue_init(4, D, device=cuda_device),
+                            *update(3, 1, 0.0))
+    st = olaf_enqueue_plain(st, *update(5, 2, 0.5))
+    slot = int(torch.nonzero(st.cluster == 3)[0])
+    st.payload[slot] = float("nan")
+    burst = update(3, 1, 1.0)  # the same worker again: a replace, a reset
+    want = olaf_enqueue_plain(st, *burst)
+    got = olaf_enqueue_cuda(st.clone(), *burst)
+    step_want = olaf_step_plain(st, *burst, 1)
+    step_got = olaf_step_cuda(st.clone(), *burst, 1)
+    torch.cuda.synchronize()
+    assert int(want.n_repl) == 1 and bool(torch.isnan(want.payload[slot]).all())
+    for w, g in ((want, got), (step_want[0], step_got[0])):
+        for f in META_FIELDS:
+            assert torch.equal(getattr(w, f), getattr(g, f)), f
+        others = torch.arange(4, device=cuda_device) != slot
+        assert torch.equal(w.payload[others], g.payload[others])
+    assert torch.equal(got.payload[slot], burst[4][0])
+    assert bool(step_got[1]["valid"][0]) and bool(torch.isnan(
+        step_want[1]["payload"][0]).all())
+    assert torch.equal(step_got[1]["payload"][0], burst[4][0])
+
+
+@pytest.mark.cuda
+def test_olaf_step_on_two_streams_at_once(cuda_device):
+    """Cycles in flight on two streams of one card at once: each stream
+    has its own tickets, so every queue's metadata is written back once,
+    by its own call, and every result equals the same call run alone."""
+    rng = np.random.default_rng(22)
+    S, Q, U, D, k = 2, 8, 24, 2**15 + 1, 3
+    base = TorchQueueState.stack([queue_init(Q, D, device=cuda_device)] * S)
+    bursts = [_burst(rng, S, U, D, 2 * Q, 0.0, cuda_device) for _ in range(2)]
+    alone = [olaf_step_cuda(base.clone(), *b, k) for b in bursts]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in bursts]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    outs = [[], []]
+    for _ in range(10):
+        for i, (s, b) in enumerate(zip(streams, bursts)):
+            with torch.cuda.stream(s):
+                st = base.clone()
+                outs[i].append(olaf_step_cuda(st, *b, k))
+    torch.cuda.synchronize()
+    for want, got in zip(alone, outs):
+        for st, out in got:
+            for f in META_FIELDS + ("payload",):
+                assert torch.equal(getattr(want[0], f), getattr(st, f)), f
+            for f in OUT_EXACT + ("payload",):
+                assert torch.equal(want[1][f], out[f]), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["drained_slot_reset", "drain_only",
+                                  "hop_minus_two", "all_gates_zero",
+                                  "wide"])
+def test_forward_kernel_matches_plain(cuda_device, case):
+    """The fused boundary against its plain version: counts, clears and
+    hops exact, rows within rtol=1e-5, atol=1e-6; deterministic."""
+    rng = np.random.default_rng(30 + len(case))
+    S, Q, U, D = (21, 8, 64, 2**17 + 3) if case == "wide" else (3, 4, 8, 941)
+    U = 0 if case == "drain_only" else U
+    (sl, cn, up), small = _forward_operands(rng, cuda_device, S, Q, U, D)
+    small["drain_sw"] = torch.tensor([1, 0, 2, 1], dtype=torch.int32,
+                                     device=cuda_device)
+    small["drain_slot"] = torch.tensor([2, 0, 3, 2], dtype=torch.int32,
+                                       device=cuda_device)
+    small["drain_hop"] = torch.tensor(
+        [0, -1, -2 if case == "hop_minus_two" else 1, 3], dtype=torch.int32,
+        device=cuda_device)
+    small["reset_slots"][1, 2] = case == "drained_slot_reset"
+    if case == "all_gates_zero":
+        small["gate"].zero_()
+    kw = dict(reset=small["reset_slots"], drain_sw=small["drain_sw"],
+              drain_slot=small["drain_slot"], drain_hop=small["drain_hop"])
+    before = (olaf_combine_cuda.launches, olaf_combine_cuda.drain_launches)
+    got = olaf_combine_cuda(sl, cn, up, small["clusters"], small["gate"], **kw)
+    again = ops.olaf_forward(sl, cn, up, **small)
+    want = olaf_combine_plain(sl, cn, up, small["clusters"], small["gate"], **kw)
+    torch.cuda.synchronize()
+    landed = 0 if case == "drain_only" else 2
+    assert (olaf_combine_cuda.launches - before[0],
+            olaf_combine_cuda.drain_launches - before[1]) == (landed, 2 - landed)
+    assert torch.equal(got[1], want[1])
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    for g, a in zip(got, again[:3]):
+        assert torch.equal(g, a)
+    assert torch.equal(again[3], small["drain_hop"])
 
 
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # bf16: ~2 ulps
