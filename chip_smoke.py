@@ -9,13 +9,17 @@ to 0 just before it and read just after: the async-DRL trainer (every PS
 drain is one ``olaf_step`` kernel call), the hybrid multi-switch data plane
 fed by real PPO gradients (``run_hybrid_ppo``: every window lands through
 the ``olaf_combine`` kernel), the fat-tree scenario command, the
-``ops.olaf_enqueue`` entry point (the ``olaf_enqueue`` kernel), and LM
+``ops.olaf_enqueue`` entry point (the ``olaf_enqueue`` kernel), LM
 serving of smollm-360m at full width and depth (``launch.serve.serve``
 under ``attn_impl="pallas"``: every prefill layer is one
 ``flash_attention`` launch, every decode layer one ``decode_attention``
-launch). The attention kernels are held to their plain versions in both
-the folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one,
-and timed beside SDPA. It prints each kernel's ptxas registers and spills,
+launch), and LM training of smollm-360m at full width (``launch.train
+--mode olaf-async``: every PS step is one ``olaf_step`` launch at D =
+361,821,120, the kernel held to its plain version at that shape; then
+``--mode sync``; and a reduced run on the card held to the same run on the
+CPU). The attention kernels are held to their plain versions in both the
+folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one, and
+timed beside SDPA. It prints each kernel's ptxas registers and spills,
 counts each wrapper's device kernels per call in a profiler trace (one,
 and no other device operation, for each OLAF wrapper; one for each
 attention kernel; or it fails), times the kernels, and the fused
@@ -29,6 +33,7 @@ Imports torch, numpy and ``repro_torch`` only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -61,6 +66,7 @@ from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models.module import tree_leaves  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.models import module as lm_module  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
@@ -150,9 +156,11 @@ def compare(want, got, what: str) -> float:
     return err
 
 
-def cycle_cost(state: TorchQueueState, b: Burst):
+def cycle_cost(state: TorchQueueState, b: Burst, dim=None):
     """(bytes, operations, kernel bytes) of one cycle on this state and
-    burst, per queue.
+    burst, per queue. ``dim`` gives the payload width where the state and
+    burst carry metadata only (zero-width payloads: the train path's D is
+    too wide to resolve in the plain version just to count).
 
     bytes, the least the cycle must move: 4·D·(contributing burst rows +
     slot rows read + slot rows written + k drained rows) plus every metadata
@@ -169,6 +177,7 @@ def cycle_cost(state: TorchQueueState, b: Burst):
     (ROADMAP hazard H16), with the same burst, drained and metadata
     terms."""
     S, Q, D = state.payload.shape
+    D = D if dim is None else dim
     U = b.clusters.shape[1]
     K = min(b.k, Q)
     total_bytes = total_ops = kernel_bytes = 0
@@ -916,6 +925,15 @@ def decode_library(q, kc, vc, pos):
                                                     enable_gqa=True)
 
 
+def allclose_text(got, want, tol) -> str:
+    """The bound ``torch.allclose(got, want, rtol=tol, atol=tol)`` checks,
+    and the worst element's share of it."""
+    diff = (got.float() - want.float()).abs()
+    share = float((diff / (tol + tol * want.float().abs())).max())
+    return (f"bound |err| <= atol + rtol*|plain| with rtol {tol} and atol "
+            f"{tol}; worst element at {share:.3g} of its bound")
+
+
 def check_attention(dev, gen):
     """Every flash and decode shape in both dtypes: kernel against plain.
     Returns {(kind, name, dtype): (max |err|, inputs)}."""
@@ -934,7 +952,8 @@ def check_attention(dev, gen):
             log(f"[check] flash_attention {name} {str(dtype)[6:]}: "
                 f"BH={shape[0]} Sq={shape[1]} Sk={shape[2]} Dh={shape[3]} "
                 f"causal={shape[4]} window={shape[5]} q_offset={shape[6]} "
-                f"matches (max |err| {err:.3g}, tolerance {tol})")
+                f"matches (max |err| {err:.3g}; "
+                f"{allclose_text(got, want, tol)})")
             out[("flash", name, dtype)] = (err, (q, k, v))
     for name, mshape in FLASH_MODEL_SHAPES.items():
         shape = folded_shape(mshape)
@@ -954,7 +973,8 @@ def check_attention(dev, gen):
                 f"Dh) views B={mshape[0]} Sq={mshape[1]} Sk={mshape[2]} "
                 f"H={mshape[3]} Dh={mshape[4]} strides {tuple(q.stride())} "
                 f"causal={mshape[5]} window={mshape[6]} q_offset={mshape[7]} "
-                f"matches (max |err| {err:.3g}, tolerance {tol})")
+                f"matches (max |err| {err:.3g}; "
+                f"{allclose_text(got, want, tol)})")
             out[("flash", name, dtype)] = (err, (q, k, v))
     for name, shape in DECODE_SHAPES.items():
         for dtype in ATTN_DTYPES:
@@ -973,7 +993,8 @@ def check_attention(dev, gen):
             log(f"[check] decode_attention {name} {str(dtype)[6:]}: "
                 f"B={shape[0]} KV={shape[1]} rep={shape[2]} S={shape[3]} "
                 f"Dh={shape[4]} pos {pos.tolist()} matches (max |err| "
-                f"{err:.3g}, tolerance {tol}); 3 calls bitwise equal")
+                f"{err:.3g}; {allclose_text(got, want, tol)}); 3 calls "
+                f"bitwise equal")
             out[("decode", name, dtype)] = (err, (q, kc, vc, pos))
     return out
 
@@ -1130,6 +1151,275 @@ def serve_phase(dev) -> dict:
         f"{route_err[0]:.3g}, {gen_s} decode steps max |err| "
         f"{max(route_err[1:]):.3g} (tolerance {SERVE_TOL})")
     return serve_counts
+
+
+# ---------------------------------------------------------------------------
+# LM training: launch.train --mode olaf-async / sync (the PS step)
+# ---------------------------------------------------------------------------
+TRAIN_FULL = ["--arch", "smollm-360m", "--mode", "olaf-async", "--workers",
+              "4", "--batch", "32", "--seq", "256", "--burst-size", "2",
+              "--drain-k", "4", "--ingress-screen", "--steps", "6",
+              "--log-every", "0"]
+TRAIN_SYNC = ["--arch", "smollm-360m", "--mode", "sync", "--batch", "32",
+              "--seq", "256", "--steps", "3", "--log-every", "0"]
+TRAIN_REDUCED = ["--arch", "smollm-360m", "--reduced", "--mode",
+                 "olaf-async", "--workers", "4", "--batch", "8", "--seq",
+                 "16", "--steps", "8", "--burst-size", "2", "--drain-k", "4",
+                 "--ingress-screen", "--staleness-bound", "0.6",
+                 "--crash-workers", "1", "--crash-at", "2", "--restart-at",
+                 "5", "--log-every", "0"]
+TRAIN_D = 361_821_120  # smollm-360m's parameters: the flat update's width
+TRAIN_TOL = 1e-4  # reduced card run against the CPU run: losses, AoM
+
+
+class EventClock:
+    """Replaces ``module.name`` while a ``with`` block runs and records a
+    CUDA event pair around each call: the device time from the call's first
+    operation to its last, gaps included (the host may enqueue slower than
+    the card runs)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn, self.pairs = getattr(module, name), []
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+    def __call__(self, *a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*a, **kw)
+        end.record()
+        self.pairs.append((start, end))
+        return out
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs]
+
+
+class CycleCapture:
+    """Replaces ``ops.olaf_step`` for one call inside a ``with`` block and
+    keeps a clone of the queue before it and the call's burst operands."""
+
+    def __enter__(self):
+        self._orig = orig = ops.olaf_step
+
+        def wrapper(state, *a, **kw):
+            self.state = state.clone()
+            self.args, self.k = a, kw["k"]
+            return orig(state, *a, **kw)
+
+        ops.olaf_step = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        ops.olaf_step = self._orig
+        return False
+
+    def kernel_args(self):
+        """``olaf_step_cuda``'s arguments after the state: the kernel runs
+        the cycle; ``ops`` applies the churn mask after it."""
+        clusters, workers, times, rewards, payloads, thr, send, cap, _, \
+            screen = self.args
+        return (clusters, workers, times, rewards, payloads, self.k, thr,
+                send, cap, screen)
+
+    def metadata_burst(self):
+        """The state and burst with zero-width payloads, for ``cycle_cost``
+        (one queue, an S axis of 1)."""
+        st = TorchQueueState(**{n: (v[:, :0] if n == "payload" else v)[None]
+                                for n, v in self.state.fields().items()})
+        c, w, t, r, pay, k, thr, send, _, screen = self.kernel_args()
+        one = lambda x: x[None]  # noqa: E731
+        return st, Burst(
+            clusters=one(c), workers=one(w), gen_times=one(t),
+            rewards=one(r), payloads=one(pay[:, :0]), send=one(send),
+            screen=one(screen) if screen is not None else torch.zeros_like(
+                one(send)),
+            capacity=torch.full((1,), st.cluster.shape[1], dtype=torch.int32,
+                                device=send.device), k=k, thr=thr)
+
+
+def ps_step_bytes(cap: CycleCapture, D: int, param_bytes: int):
+    """The least bytes of one PS step: the ``olaf_step`` cycle's
+    (``cycle_cost`` on this step's own queue and burst), AdamW's (the
+    gradient, each param, m and v read once; each param, m and v written
+    once), the screen's (the burst rows read once) and the weighted mean's
+    (the K drained rows read, one row written)."""
+    st, b = cap.metadata_burst()
+    cycle, _, kernel_bytes = cycle_cost(st, b, dim=D)
+    U, K = b.clusters.shape[1], min(b.k, st.cluster.shape[1])
+    parts = dict(cycle=cycle, adamw=D * (3 * param_bytes + 16),
+                 screen=4 * U * D, mean=4 * (K + 1) * D)
+    return sum(parts.values()), parts, cycle, kernel_bytes
+
+
+def train_phase(dev) -> dict:
+    """``launch.train`` at full smollm-360m width: olaf-async (counted
+    from 0; CUDA-event times of the worker gradients and the PS steps; a
+    profiled repeat of one step for the idle share), the ``olaf_step``
+    kernel against its plain version at the path's own shape, then sync;
+    then the reduced olaf-async run on the card against the CPU run.
+    Returns the launch counts and the numbers for the kernel line."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # by the phases before this one
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with EventClock(launch_train, "worker_grad") as grad_clock, \
+            EventClock(launch_train, "ps_step") as ps_clock:
+        tr = launch_train.main(TRAIN_FULL)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = tr.args.steps
+    grad_ms, ps_ms = grad_clock.ms(), ps_clock.ms()
+    losses = [l for _, l, _ in tr.log_rows]
+    params = tree_leaves(tr.state.params)
+    require(tr.dim == TRAIN_D, f"train: D = {tr.dim}, not {TRAIN_D}")
+    require(counts["olaf_step"] == steps == len(ps_ms),
+            f"train: {counts['olaf_step']} olaf_step launches in {steps} PS "
+            f"steps, one per step expected")
+    require(len(losses) == steps and all(math.isfinite(l) for l in losses),
+            f"train: losses {losses}")
+    require(sum(c for _, _, c in tr.log_rows) > 0, "train: nothing applied")
+    require(all(bool(torch.isfinite(x).all()) for x in params)
+            and bool(torch.isfinite(tr.state.queue.payload).all()),
+            "train: non-finite params or queue")
+    qbytes = sum(v.nbytes for v in tr.state.queue.fields().values())
+    per_step_grad = [a + b for a, b in zip(grad_ms[::2], grad_ms[1::2])]
+    log(f"[train] olaf-async smollm-360m full width "
+        f"({params[0].dtype}, seeded random weights): D={tr.dim} "
+        f"({tr.dim * 4} B a row), queue Q={tr.state.queue.cluster.shape[0]} "
+        f"{qbytes} B, workers 4 batch 32 seq 256 burst 2 drain_k 4 screen "
+        f"on; {steps} steps in {tr.wall:.3f} s = {steps / tr.wall:.3f} "
+        f"steps/s; olaf_step launches {counts['olaf_step']} (counted from 0); "
+        f"peak memory {peak} B ({peak / 2**30:.2f} GiB; {held} B of it "
+        f"held before the run, so the run's own {(peak - held) / 2**30:.2f} "
+        f"GiB); loss first "
+        f"{losses[0]:.6f} last {losses[-1]:.6f}")
+    log(f"[train] CUDA events per step: worker gradients (2 per step) "
+        f"{', '.join(f'{x:.2f}' for x in per_step_grad)} ms; PS step "
+        f"{', '.join(f'{x:.3f}' for x in ps_ms)} ms (mean of steps 2-"
+        f"{steps}: gradients {np.mean(per_step_grad[1:]):.3f} ms, PS step "
+        f"{np.mean(ps_ms[1:]):.3f} ms)")
+    # one more step on the host clock, then a profiled repeat of one whole
+    # step (two gradients and the PS step): the profiler slows the host
+    # (a trace of thousands of launches), so its busy time is also shown
+    # over the unprofiled step's wall
+    walls = []
+    for profiled in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            tr.step()
+            tr.flush()
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_1, wall_p = walls
+    kernels = device_kernels(prof)
+    busy = sum(us for _, us in kernels.values()) / 1e6
+    idle = idle_p = None
+    if busy:
+        idle, idle_p = (100 * (1 - busy / w) for w in (wall_1, wall_p))
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+        log(f"[train] one step: {wall_1:.4f} s wall unprofiled; profiled "
+            f"repeat: device busy {busy:.4f} s in "
+            f"{sum(n for n, _ in kernels.values())} device events: idle "
+            f"share {idle:.2f}% of the unprofiled step's wall ({idle_p:.2f}% "
+            f"of the profiled repeat's {wall_p:.3f} s); the largest: "
+            + "; ".join(f"{n[:60]} x{c} {us / 1e3:.3f} ms"
+                        for n, (c, us) in top))
+    else:
+        log("[train] device busy: not measured (the profiler recorded no "
+            "device events)")
+    # one more step with its queue and burst kept: the PS step's bound,
+    # and the kernel against its plain version at the path's own shape
+    with CycleCapture() as cap:
+        tr.step()
+    param_bytes = params[0].element_size()
+    del tr, params
+    torch.cuda.empty_cache()
+    ps_bytes, parts, cycle_bytes, kernel_bytes = ps_step_bytes(
+        cap, TRAIN_D, param_bytes)
+    ps_bound = ps_bytes / HBM_BYTES_PER_S * 1e3
+    kargs = cap.kernel_args()
+    want = olaf_step_plain(cap.state, *kargs)
+    got = olaf_step_cuda(cap.state.clone(), *kargs)
+    torch.cuda.synchronize()
+    err = compare(want, got, "train: olaf_step at the path's shape")
+    del want, got
+    torch.cuda.empty_cache()
+    t_k = time_ms(lambda st: olaf_step_cuda(st, *kargs), cap.state.clone, 3)
+    t_p = time_ms(lambda st: olaf_step_plain(st, *kargs), lambda: cap.state, 2)
+    k_bound = cycle_bytes / HBM_BYTES_PER_S * 1e3
+    shape = f"S=1 Q={cap.state.cluster.shape[0]} U={kargs[0].shape[0]} " \
+            f"K={cap.k} D={TRAIN_D}"
+    log(f"[train] PS step byte bound {ps_bound:.4f} ms ({ps_bytes} B: "
+        + ", ".join(f"{k} {v}" for k, v in parts.items())
+        + f") against {np.mean(ps_ms[1:]):.3f} ms measured = "
+        f"{100 * ps_bound / np.mean(ps_ms[1:]):.2f}% of the bound")
+    log(f"[train] olaf_step at the path's shape {shape}: matches its plain "
+        f"version (max |err| {err:.3g}); kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f} ms, bound {k_bound:.4f} ms (bytes, {cycle_bytes} B; the "
+        f"kernel moves {kernel_bytes} B) = {100 * k_bound / t_k:.2f}% of "
+        f"the bound")
+    del cap
+    torch.cuda.empty_cache()
+    # sync at the same width
+    res = launch_train.main(TRAIN_SYNC)
+    torch.cuda.synchronize()
+    require(len(res.losses) == 3 and all(math.isfinite(l) for l in res.losses),
+            f"train sync: losses {res.losses}")
+    log(f"[train] sync smollm-360m full width, batch 32 seq 256: 3 steps in "
+        f"{res.wall:.3f} s ({3 / res.wall:.3f} steps/s, the loss read back "
+        f"every step); losses {[round(l, 6) for l in res.losses]}")
+    del res
+    torch.cuda.empty_cache()
+    # reduced size: the card against the CPU
+    reset_counts()
+    card = launch_train.main(TRAIN_REDUCED)
+    torch.cuda.synchronize()
+    reduced_launches = read_counts()["olaf_step"]
+    host = launch_train.main(TRAIN_REDUCED + ["--device", "cpu"])
+    for f in ("deferred_total", "stale_total", "screened_total"):
+        require(getattr(card, f) == getattr(host, f),
+                f"train reduced: {f} differs between card and CPU")
+    require([c for *_, c in card.log_rows] == [c for *_, c in host.log_rows],
+            "train reduced: combined counts differ")
+    for f in META:  # the rewards are the workers' -loss: floats
+        a, b = getattr(card.state.queue, f).cpu(), getattr(host.state.queue, f)
+        require(torch.allclose(a, b, rtol=TRAIN_TOL) if f == "reward"
+                else torch.equal(a, b), f"train reduced: queue {f} differs")
+    l_card = np.array([l for _, l, _ in card.log_rows])
+    l_host = np.array([l for _, l, _ in host.log_rows])
+    require(np.allclose(l_card, l_host, rtol=TRAIN_TOL, atol=0),
+            f"train reduced: losses {l_card} vs {l_host}")
+    require(np.isclose(card.avg_aom(), host.avg_aom(), rtol=TRAIN_TOL),
+            "train reduced: avg AoM")
+    require(reduced_launches == 8, "train reduced: olaf_step launches")
+    log(f"[train] reduced olaf-async (churn, staleness bound 0.6, screen) "
+        f"card equals CPU: stale {card.stale_total}, deferred "
+        f"{card.deferred_total}, screened {card.screened_total}, n_agg "
+        f"{int(card.state.queue.n_agg)} exact; losses max rel diff "
+        f"{float(np.max(np.abs(l_card - l_host) / np.abs(l_host))):.3g} "
+        f"(rtol {TRAIN_TOL}); olaf_step launches {reduced_launches}")
+    log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, shape=shape, ms=t_k, plain_ms=t_p,
+                bound_ms=k_bound, bytes=cycle_bytes, kernel_bytes=kernel_bytes,
+                max_abs_err=err, ps_step_ms=float(np.mean(ps_ms[1:])),
+                ps_step_bound_ms=ps_bound, step_s=wall_1,
+                idle_share=idle, idle_share_profiled=idle_p,
+                peak_bytes=peak - held)
 
 
 def demangle(names):
@@ -1528,6 +1818,10 @@ def main() -> int:
     # ---- 4e. LM serving: smollm-360m at full width and depth ---------------
     serve_counts = serve_phase(dev)
 
+    # ---- 4f. LM training with the OLAF-async PS step, full width ------------
+    train = train_phase(dev)
+    max_err = max(max_err, train["max_abs_err"])
+
     # ---- 5. timing ---------------------------------------------------------
     # the timer's floor: one kernel that adds 1 to one element, timed as
     # every kernel below is (the small OLAF shapes sit a few µs above it)
@@ -1578,7 +1872,7 @@ def main() -> int:
     log(f"[time] total smoke wall {time.perf_counter() - t_start:.1f} s")
     paths = dict(trainer=trainer_counts, hybrid_ppo=hybrid_counts,
                  scenario=scenario_counts, enqueue=enqueue_counts,
-                 serve=serve_counts)
+                 serve=serve_counts, train=train["counts"])
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -1591,7 +1885,8 @@ def main() -> int:
         name="olaf_step", route="cuda",
         source="src/repro_torch/kernels/csrc/olaf_step.cu",
         replaces="src/repro/kernels/olaf_step.py:215",
-        launches=launches, max_abs_err=max_err, ms=t_a["ms"],
+        launches=train["counts"]["olaf_step"], max_abs_err=max_err,
+        ms=t_a["ms"],
         plain_ms=t_a["plain_ms"], bound_ms=t_a["bound_ms"],
         bound_by=t_a["bound_by"], library_ms=None,
         bytes=t_a["bytes"], kernel_bytes=t_a["kernel_bytes"],
@@ -1604,6 +1899,13 @@ def main() -> int:
                         plain_ms=t_a8["plain_ms"], bound_ms=t_a8["bound_ms"],
                         bytes=t_a8["bytes"],
                         kernel_bytes=t_a8["kernel_bytes"]),
+        train=dict(shape=f"{train['shape']} (launch.train olaf-async, the "
+                         f"main path: one launch per PS step)",
+                   **{k: train[k] for k in (
+                       "ms", "plain_ms", "bound_ms", "bytes", "kernel_bytes",
+                       "max_abs_err", "ps_step_ms", "ps_step_bound_ms",
+                       "step_s", "idle_share", "idle_share_profiled",
+                       "peak_bytes")}),
         timer_floor_ms=floor_ms, launches_by_path=by_path("olaf_step"))
     combine_entry = dict(
         name="olaf_combine", route="cuda",

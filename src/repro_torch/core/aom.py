@@ -8,13 +8,16 @@ Fig. 5). Peak AoM is the value just before a delivery.
 This module turns delivery logs ``[(D_k, gen_k)]`` into the paper's metrics:
 time-average AoM (integral of the sawtooth / horizon), peak-AoM sequences
 (closed form of §6), and Jain's fairness index over per-cluster averages
-(Tabs. 2/3).
+(Tabs. 2/3). Its device half (:class:`TorchAoMState`) keeps the running
+integral inside the PS step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def aom_trajectory(deliveries: Sequence[Tuple[float, float]],
@@ -90,3 +93,69 @@ def jain_fairness(values: Iterable[float]) -> float:
 def per_cluster_average_aom(deliveries_by_cluster: Dict[int, Sequence[Tuple[float, float]]],
                             horizon: float) -> Dict[int, float]:
     return {c: average_aom(sorted(d), horizon) for c, d in deliveries_by_cluster.items()}
+
+
+# ===========================================================================
+# Device half: the running sawtooth integral updated inside the PS step, the
+# counterpart of ``repro``'s ``JaxAoMState`` and ``jax_aom_*`` functions.
+# 0-dim float32 tensors on the PS's device; nothing reads back to the host.
+# ===========================================================================
+@dataclasses.dataclass
+class TorchAoMState:
+    """The trapezoid integral so far, the last delivery time and the
+    freshest generation time the PS holds (0-dim float32 tensors)."""
+
+    last_t: torch.Tensor
+    last_gen: torch.Tensor
+    integral: torch.Tensor
+
+
+def aom_init(t0: float = 0.0, *, device) -> TorchAoMState:
+    """AoM(0) = -t0, as :func:`aom_trajectory`."""
+    def f(v):
+        return torch.full((), v, dtype=torch.float32, device=device)
+
+    return TorchAoMState(last_t=f(0.0), last_gen=f(t0), integral=f(0.0))
+
+
+def aom_update(state: TorchAoMState, t, gen, valid) -> TorchAoMState:
+    """Fold one delivery ``(t, gen)`` (0-dim float32 tensors; ``valid`` a
+    0-dim bool, False = a no-op row) into the integral. ``last_t`` stays
+    monotone: a delivery whose time regresses below it is folded at
+    ``last_t`` with a zero-width trapezoid, never a negative area."""
+    t = torch.maximum(t, state.last_t)
+    dt = t - state.last_t
+    area = dt * ((state.last_t - state.last_gen) + (t - state.last_gen)) / 2.0
+    return TorchAoMState(
+        last_t=torch.where(valid, t, state.last_t),
+        last_gen=torch.where(valid, torch.maximum(state.last_gen, gen),
+                             state.last_gen),
+        integral=torch.where(valid, state.integral + area, state.integral))
+
+
+def aom_update_block(state: TorchAoMState, ts, gens, valids) -> TorchAoMState:
+    """Fold a drained block (K rows in FIFO order: ``olaf_step``'s drain
+    output) one row after another."""
+    ts = ts.to(torch.float32)
+    gens = gens.to(torch.float32)
+    for i in range(ts.shape[0]):
+        state = aom_update(state, ts[i], gens[i], valids[i])
+    return state
+
+
+def aom_average(state: TorchAoMState, horizon) -> torch.Tensor:
+    """Time-average AoM over [0, horizon]: the integral plus the open tail
+    after the last delivery (a 0-dim float32 tensor)."""
+    horizon = torch.full((), horizon, dtype=torch.float32,
+                         device=state.last_t.device)
+    dt = horizon - state.last_t
+    tail = dt * ((state.last_t - state.last_gen)
+                 + (horizon - state.last_gen)) / 2.0
+    return (state.integral + tail) / torch.clamp(horizon, min=1e-9)
+
+
+def staleness_mask(now, gen_times, bound: float) -> torch.Tensor:
+    """True for drained rows whose age ``now - gen_time`` is within the
+    hard ``bound``: AND it into the drain's ``valid`` before the apply."""
+    return (now - gen_times.to(torch.float32)) <= torch.full(
+        (), bound, dtype=torch.float32, device=gen_times.device)

@@ -11,6 +11,7 @@ Two interchangeable implementations:
     These functions are the plain PyTorch version of the fused CUDA
     ``olaf_step`` kernel (``repro_torch.kernels.olaf_step``): the CPU path
     and the yardstick the kernel is held to on the card.
+  * :func:`screen_mask` — the PS step's ingress screen on the device.
 
 Semantics (paper §4 + §12.1):
   - at most one update per cluster in the queue (plus momentarily a second
@@ -33,7 +34,8 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.aggregation import Action, Update, aggregate, gate, replace
+from repro_torch.core.aggregation import (Action, Update, aggregate,
+                                          column_slices, gate, replace)
 
 
 class QueueStats:
@@ -601,3 +603,45 @@ def olaf_step(state: TorchQueueState, clusters, workers, gen_times, rewards,
     if active_workers is not None:
         out = expire_inactive_drains(out, active_workers)
     return state, out
+
+
+def screen_mask(payloads: torch.Tensor, med: torch.Tensor, *,
+                factor: float = 16.0, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ingress screen for one burst of payload rows (U, D), the counterpart
+    of ``repro``'s ``jax_screen_mask``: ``(screen (U,) bool, new med)``.
+
+    A row is screened (True) when a coordinate is non-finite, or when its
+    L2 norm (over its finite coordinates) exceeds ``factor ×`` the running
+    scale estimate ``med`` (a 0-dim float32; 0 until the first admitted
+    row). Each admitted row moves ``med`` by at most ±10%. The rows are
+    judged in order, row u against the estimate after rows < u; a row with
+    ``mask`` False (deferred by transmission control) is never screened and
+    never moves ``med``. The norms are summed over column slices
+    (:data:`~repro_torch.core.aggregation.COLUMN_CHUNK`); nothing is read
+    back to the host.
+    """
+    U, D = payloads.shape
+    sumsq = torch.zeros(U, dtype=torch.float32, device=payloads.device)
+    finite = torch.ones(U, dtype=torch.bool, device=payloads.device)
+    for sl in column_slices(D):
+        x = payloads[:, sl].to(torch.float32)
+        fin = torch.isfinite(x)
+        sumsq += torch.where(fin, x, 0.0).square().sum(dim=-1)
+        finite &= fin.all(dim=-1)
+    norms = torch.sqrt(sumsq)
+    if mask is None:
+        mask = torch.ones(U, dtype=torch.bool, device=payloads.device)
+    m = med.to(torch.float32)
+    screened = []
+    for u in range(U):
+        n, act = norms[u], mask[u]
+        big = (m > 0.0) & (n > factor * m)
+        scr = act & (~finite[u] | big)
+        m_new = torch.where(m == 0.0, n,
+                            m + torch.clamp(n - m, min=-0.1 * m, max=0.1 * m))
+        m = torch.where(act & ~scr, m_new, m)
+        screened.append(scr)
+    screen = (torch.stack(screened) if screened
+              else torch.zeros(0, dtype=torch.bool, device=payloads.device))
+    return screen, m

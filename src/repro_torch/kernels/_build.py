@@ -94,6 +94,21 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
+#: The largest size an ``int`` field of a kernel's argument struct holds.
+INT32_MAX = 2**31 - 1
+
+
+def check_int_sizes(op: str, **sizes: int) -> None:
+    """Raise ``ValueError`` for a size a kernel's ``int`` field cannot
+    hold: ``ctypes.c_int`` would wrap it silently and launch the kernel on
+    the wrong width."""
+    for name, n in sizes.items():
+        if n > INT32_MAX:
+            raise ValueError(f"{op}: {name} = {n} is over the kernel's limit "
+                             f"of 2**31 - 1 = {INT32_MAX} (an int field of "
+                             f"its argument struct)")
+
+
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 

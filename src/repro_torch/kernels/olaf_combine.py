@@ -121,14 +121,18 @@ def olaf_combine_cuda(slots: torch.Tensor, counts: torch.Tensor,
         if t is not None and t.device != dev:
             raise ValueError(f"olaf_combine: {name} is on {t.device}, the "
                              f"slots on {dev}: operands on more than one device")
-    if dev.type != "cuda":
-        raise ValueError(f"olaf_combine_cuda needs CUDA tensors, got {dev}")
     if gate.dtype == torch.bool:
         gate = gate.to(torch.int32)
     (sl, cn, up, cl, gt, rs), squeeze = _batched(slots, counts, updates,
                                                  clusters, gate, reset)
     drain = (drain_sw, drain_slot, drain_hop)
     _check_shapes(sl, cn, up, cl, gt, rs, drain)
+    S, Q, D = sl.shape
+    U = cl.shape[-1]
+    K = 0 if drain_sw is None else drain_sw.shape[0]
+    _build.check_int_sizes("olaf_combine", S=S, Q=Q, U=U, D=D, K=K)
+    if dev.type != "cuda":
+        raise ValueError(f"olaf_combine_cuda needs CUDA tensors, got {dev}")
     for name, t, dt in (("slots", sl, torch.float32), ("counts", cn, torch.int32),
                         ("updates", up, torch.float32),
                         ("clusters", cl, torch.int32), ("gate", gt, torch.int32),
@@ -141,9 +145,6 @@ def olaf_combine_cuda(slots: torch.Tensor, counts: torch.Tensor,
             raise TypeError(f"olaf_combine: {name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"olaf_combine: {name} must be contiguous")
-    S, Q, D = sl.shape
-    U = cl.shape[-1]
-    K = 0 if drain_sw is None else drain_sw.shape[0]
     land = drain_sw is None or U > 0
     lib = _lib()
     smem = 4 * lib.olaf_combine_smem_words(Q, U, K)

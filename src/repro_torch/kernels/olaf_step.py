@@ -106,6 +106,7 @@ def cycle_operands(name: str, state: TorchQueueState, clusters, workers,
         screen = None if screen is None else screen.unsqueeze(0)
     S, Q, D = state.payload.shape
     U = clusters.shape[-1]
+    _build.check_int_sizes(name, S=S, Q=Q, U=U, D=D)
     for n, v in state.fields().items():
         shape = (S, Q, D) if n == "payload" else (
             (S,) if v.dim() == 1 else (S, Q))

@@ -1,6 +1,7 @@
 """Model API for the dense family: the counterpart of ``repro.models.api``.
 
 Entry points keyed by the shape kind, with ``repro``'s batch dicts:
+``loss_fn(params, {"tokens", "labels"})`` (training),
 ``forward(params, {"tokens"})``, ``prefill(params, {"tokens"})`` and
 ``decode_step(params, caches, {"token", "pos"})`` (which updates the caches
 in place). ``param_spec``, ``cache_spec`` and ``input_specs`` come with the
@@ -21,6 +22,10 @@ Params = Dict[str, Any]
 def init_model(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random weights drawn from ``gen``, on ``gen``'s device."""
     return TF.init_lm(gen, cfg)
+
+
+def loss_fn(params, batch, cfg: ArchConfig) -> torch.Tensor:
+    return TF.lm_loss(params, batch, cfg)
 
 
 def forward(params, batch, cfg: ArchConfig) -> torch.Tensor:

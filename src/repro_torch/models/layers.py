@@ -244,6 +244,11 @@ def attention_any(q, k, v, *, causal: bool, window: int = 0,
     if impl == "auto":
         impl = "chunked" if max(q.shape[1], k.shape[1]) > 2048 else "full"
     if impl == "pallas":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise ValueError(
+                "attn_impl='pallas' has no backward (the flash kernel, as "
+                "repro's Pallas one, computes the forward only): train with "
+                "attn_impl 'auto', 'full' or 'chunked'")
         from repro_torch.kernels import ops as KOPS
         return KOPS.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset)

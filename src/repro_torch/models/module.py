@@ -9,11 +9,18 @@ serving needs neither.
 Draws come from a ``torch.Generator`` with ``repro``'s distributions; the
 bits differ from ``jax.random``'s (ROADMAP hazard H3), so parity tests
 carry ``repro``'s weights across with ``transformer.params_from_jax``.
+
+:func:`tree_leaves` walks a tree in ``jax.tree_util``'s order (a dict's
+keys sorted, a dataclass's fields in order, ``None`` no leaf), which is the
+order of ``repro``'s flat gradient vector and of its checkpoints' ``opt/``
+and ``aux/`` entries (ROADMAP hazard H17); :func:`tree_paths` keeps a
+dict's insertion order and names leaves by path.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -88,3 +95,86 @@ def cast_tree(params: Params, dtype: torch.dtype) -> Params:
     """Every floating leaf cast to ``dtype`` (a new tree; the rest as is)."""
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
                     params)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """Leaves in ``jax.tree_util.tree_leaves``'s order: a dict's values by
+    sorted key, a tuple's (or NamedTuple's) items in order, a dataclass's
+    fields in declaration order; ``None`` is an empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for item in tree for x in tree_leaves(item)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree)
+                for x in tree_leaves(getattr(tree, f.name))]
+    return [tree]
+
+
+def tree_unflatten(like, leaves: List[Any]):
+    """A tree of ``like``'s structure holding ``leaves`` in
+    :func:`tree_leaves` order (the inverse of that walk)."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(t, **{
+                f.name: build(getattr(t, f.name))
+                for f in dataclasses.fields(t)})
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
+
+
+def flat_size(tree) -> int:
+    """Elements over every leaf: the width D of :func:`flatten_like`."""
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))
+
+
+def flatten_like(tree, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every leaf raveled to float32 and concatenated in
+    :func:`tree_leaves` order: ``repro``'s ``flatten`` of a gradient tree
+    (sorted keys, H17). Writes into ``out`` (a (D,) float32 tensor, e.g. a
+    row of a burst buffer) when given, with no other whole-width copy."""
+    leaves = tree_leaves(tree)
+    if out is None:
+        out = torch.empty(flat_size(tree), dtype=torch.float32,
+                          device=leaves[0].device)
+    off = 0
+    for x in leaves:
+        n = x.numel()
+        out[off:off + n].copy_(x.reshape(-1))
+        off += n
+    if off != out.numel():
+        raise ValueError(f"flatten_like: the leaves hold {off} elements, "
+                         f"out {out.numel()}")
+    return out
+
+
+def unflatten_like(flat: torch.Tensor, like):
+    """``flat`` (D,) cut into ``like``'s leaves in :func:`tree_leaves`
+    order, each reshaped and cast to its leaf's dtype (a view where the
+    dtype already matches): ``repro``'s ``unflatten_like``."""
+    leaves, off = [], 0
+    for x in tree_leaves(like):
+        n = x.numel()
+        leaves.append(flat[off:off + n].view(x.shape).to(x.dtype))
+        off += n
+    if off != flat.numel():
+        raise ValueError(f"unflatten_like: {flat.numel()} elements for "
+                         f"leaves of {off}")
+    return tree_unflatten(like, leaves)

@@ -4,9 +4,13 @@
 Layers are grouped into repeating periods (dense: period 1, ``["attn"]``)
 whose params are stacked on a leading axis, key for key as ``repro``
 (``params["layers"]["sub_0"]``); the port loops over the periods in Python.
-Three entry points:
+Four entry points:
 
   * :func:`lm_forward`     — full-sequence logits;
+  * :func:`lm_loss`        — next-token cross entropy, differentiable by
+    autograd through the ``auto``/``full``/``chunked`` attention routes
+    (the flash kernel has no backward: ``"pallas"`` under a gradient
+    raises);
   * :func:`lm_prefill`     — forward + KV caches (inference prefill);
   * :func:`lm_decode_step` — one token against the caches, which it
     updates in place (``index_put_``; ``repro`` returns new caches and its
@@ -36,6 +40,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
 from repro_torch.models.module import dtype_of, run_periods, tree_map
+from repro_torch.optim.optimizers import OptState
 
 Params = Dict[str, Any]
 
@@ -130,6 +135,18 @@ def params_from_jax(tree, *, device) -> Params:
     else:
         t = torch.from_numpy(a)
     return t.to(device)
+
+
+def opt_state_from_jax(state, *, device):
+    """``repro``'s ``OptState`` (``step``, ``m``, ``v``; ``v`` None for
+    SGD) as the port's :class:`~repro_torch.optim.optimizers.OptState` on
+    ``device``, each moment tree carried as :func:`params_from_jax`
+    carries the params."""
+    return OptState(
+        step=torch.from_numpy(np.array(state.step, np.int32)).to(device),
+        m=params_from_jax(state.m, device=device),
+        v=None if state.v is None else params_from_jax(state.v,
+                                                       device=device))
 
 
 # --------------------------------------------------------------------------
@@ -288,6 +305,13 @@ def lm_forward(params, tokens, cfg: ArchConfig) -> torch.Tensor:
                               positions)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
+
+
+def lm_loss(params, batch, cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (a 0-dim float32)."""
+    logits = lm_forward(params, batch["tokens"], cfg)
+    return L.cross_entropy(logits, batch["labels"])
 
 
 def lm_prefill(params, tokens, cfg: ArchConfig):

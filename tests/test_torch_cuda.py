@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card,
+and the paths around them that need a card (the PS step of LM training).
 
 Imports torch, numpy and ``repro_torch`` only, so it runs on a machine
 without JAX: ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
@@ -10,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.hybrid import run_hybrid_multihop  # noqa: E402
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -510,3 +512,62 @@ def test_decode_attention_kernel_on_two_streams_at_once(cuda_device, dtype):
     torch.cuda.synchronize()
     for want, got in zip(alone, outs):
         assert all(torch.equal(want, g) for g in got)
+
+
+# --------------------------------------------------------------------------
+# LM training with the OLAF-async PS step (launch/train.py)
+# --------------------------------------------------------------------------
+TRAIN_ARGV = ["--arch", "smollm-360m", "--reduced", "--mode", "olaf-async",
+              "--workers", "4", "--batch", "8", "--seq", "16", "--steps", "8",
+              "--burst-size", "2", "--drain-k", "4", "--ingress-screen",
+              "--staleness-bound", "0.6", "--crash-workers", "1",
+              "--crash-at", "2", "--restart-at", "5", "--log-every", "0"]
+
+
+@pytest.mark.cuda
+def test_reduced_olaf_async_on_the_card_equals_the_cpu(cuda_device):
+    """The same run (one seed: the weights are drawn on the CPU for every
+    device) on the card and on the CPU: every counter exact, the losses
+    and AoM within rtol 1e-4 (cuBLAS and the CPU sum in other orders; six
+    AdamW steps amplify it), one ``olaf_step`` launch per PS step."""
+    from repro_torch.launch import train
+    olaf_step_cuda.launches = 0
+    card = train.main(TRAIN_ARGV + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    assert olaf_step_cuda.launches == 8
+    host = train.main(TRAIN_ARGV + ["--device", "cpu"])
+    assert card.state.queue.payload.device.type == "cuda"
+    for f in ("deferred_total", "stale_total", "screened_total"):
+        assert getattr(card, f) == getattr(host, f), f
+    assert [c for _, _, c in card.log_rows] == [c for _, _, c in host.log_rows]
+    for f in ("cluster", "worker", "seq", "agg_count", "next_seq", "n_agg",
+              "n_repl", "n_dropped", "n_screened"):
+        assert torch.equal(getattr(card.state.queue, f).cpu(),
+                           getattr(host.state.queue, f)), f
+    np.testing.assert_allclose([l for _, l, _ in card.log_rows],
+                               [l for _, l, _ in host.log_rows], rtol=1e-4)
+    np.testing.assert_allclose(card.avg_aom(), host.avg_aom(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ps_step_makes_no_host_sync(cuda_device):
+    """``ps_step`` on the card (screen, staleness bound, churn mask, the
+    trimmed branch) runs under ``set_sync_debug_mode("error")``: no call in
+    it waits for the card. One ``olaf_step`` launch per step."""
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(TRAIN_ARGV + ["--device", "cuda"])
+    tr = train.OlafAsyncTrainer(get_config("smollm-360m").reduced(), args)
+    tr.step()  # builds and loads the kernel outside the checked span
+    tr._churn_events(args.crash_at)
+    bursts = [tr.next_burst() for _ in range(3)]
+    torch.cuda.synchronize()
+    olaf_step_cuda.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in bursts:
+            tr.state, stats = train.ps_step(tr.state, b, cfg=tr.ps_cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert olaf_step_cuda.launches == 3
+    assert all(v.device.type == "cuda" and v.dim() == 0
+               for v in stats.values())

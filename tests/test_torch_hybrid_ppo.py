@@ -4,7 +4,8 @@
 configuration of ``tests/test_hybrid_multiswitch.py``; its gradients come
 from the port's own PPO, so it is held to its invariants and to its own
 event backend, not to ``repro``'s numbers. The scenario command is held to
-``repro``'s on the same fat-tree trace.
+``repro``'s on the same fat-tree trace; the command's refusals are checked
+here too.
 """
 import argparse
 
@@ -81,10 +82,22 @@ def test_scenario_command_matches_repro(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "sync"], "LM-substrate slice"),
-    (["--mode", "olaf-async"], "LM-substrate slice"),
+    (["--arch", "grok-1-314b", "--reduced", "--mode", "sync"],
+     "moe family is not ported yet; it comes with ROADMAP queue 1 item 7a"),
+    (["--arch", "mamba2-130m", "--reduced", "--mode", "olaf-async"],
+     "ssm family is not ported yet; it comes with ROADMAP queue 1 item 7a"),
     (["--sim-impl", "vectorized"], "vecsim slice")])
-def test_scenario_command_refuses_unported_modes(argv, match, capsys):
+def test_scenario_command_refuses_unported_modes(argv, match, capsys,
+                                                 monkeypatch):
+    """The LM modes refuse a family the port cannot build yet, and the
+    command refuses the vectorized simulator: exit 2 through the parser,
+    before any model is built."""
+    from repro_torch.models import api
+
+    def no_model(*a, **kw):
+        raise AssertionError("a model was built")
+
+    monkeypatch.setattr(api, "init_model", no_model)
     with pytest.raises(SystemExit) as exc:
         port_train.main(argv + ["--device", "cpu"])
     assert exc.value.code == 2

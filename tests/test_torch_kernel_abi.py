@@ -5,7 +5,8 @@ whose ``_Args`` drifts from the struct in the ``.cu`` source would pass
 garbage that only a card shows. These tests parse each struct out of its
 source and hold the wrapper's fields to it, name, order and C type, and
 check the argument builders that run before a launch: an omitted operand
-makes no tensor, and a window's host arrays are staged in one buffer.
+makes no tensor, a window's host arrays are staged in one buffer, and a
+size an ``int`` field cannot hold is refused.
 Imports torch, numpy and ``repro_torch`` only.
 """
 import ctypes
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
-                                 olaf_combine, olaf_step)
+                                 olaf_combine, olaf_enqueue, olaf_step)
 from repro_torch.kernels._build import CSRC  # noqa: E402
 
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
@@ -149,3 +150,51 @@ def test_stage_window_keeps_device_tensors():
     with pytest.raises(ValueError, match="more than one device"):
         olaf_combine.stage_window(torch.device("cpu"),
                                   clusters=clusters.to("meta"))
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _cycle_meta(S, Q, U, D):
+    """A queue and a burst of these sizes on the meta device: shapes only,
+    no memory."""
+    one = queue_init(1, 1, device="meta").fields()
+    st = TorchQueueState(**{n: _meta((S, Q, D) if n == "payload" else (
+        (S, Q) if v.dim() == 1 else (S,)), v.dtype) for n, v in one.items()})
+    burst = (_meta((S, U), torch.int32), _meta((S, U), torch.int32),
+             _meta((S, U)), _meta((S, U)), _meta((S, U, D)))
+    return st, burst
+
+
+BIG = 2**31  # one past what an int field of a kernel's argument struct holds
+
+
+@pytest.mark.parametrize("dim", ["S", "Q", "U", "D"])
+def test_cycle_kernels_refuse_a_size_over_int32(dim):
+    """``olaf_step`` and ``olaf_enqueue`` raise before ``ctypes.c_int``
+    would wrap a size over 2**31 - 1 (on shapes alone: meta tensors);
+    2**31 - 1 itself passes the check (and fails next, off a card)."""
+    sizes = dict(S=1, Q=4, U=2, D=8)
+    for n, match in ((BIG, r"over the kernel's limit of 2\*\*31 - 1"),
+                     (BIG - 1, "needs CUDA tensors")):
+        st, burst = _cycle_meta(**{**sizes, dim: n})
+        with pytest.raises(ValueError, match=match):
+            olaf_step.olaf_step_cuda(st, *burst, 2)
+        with pytest.raises(ValueError, match=match):
+            olaf_enqueue.olaf_enqueue_cuda(st, *burst)
+
+
+@pytest.mark.parametrize("dim", ["S", "Q", "U", "D", "K"])
+def test_combine_kernel_refuses_a_size_over_int32(dim):
+    sizes = dict(S=1, Q=4, U=2, D=8, K=1)
+    for n, match in ((BIG, r"over the kernel's limit of 2\*\*31 - 1"),
+                     (BIG - 1, "needs CUDA tensors")):
+        S, Q, U, D, K = ({**sizes, dim: n}[k] for k in "SQUDK")
+        with pytest.raises(ValueError, match=match):
+            olaf_combine.olaf_combine_cuda(
+                _meta((S, Q, D)), _meta((S, Q), torch.int32),
+                _meta((S, U, D)), _meta((S, U), torch.int32),
+                _meta((S, U), torch.int32),
+                drain_sw=_meta((K,), torch.int32),
+                drain_slot=_meta((K,), torch.int32))
