@@ -9,6 +9,9 @@ to 0 just before it and read just after: the async-DRL trainer (every PS
 drain is one ``olaf_step`` kernel call), the hybrid multi-switch data plane
 fed by real PPO gradients (``run_hybrid_ppo``: every window lands through
 the ``olaf_combine`` kernel), the fat-tree scenario command, the
+vectorized simulator (``--sim-impl vectorized``: the fat-tree k=4 command
+held to the window run and to the CPU, and ``repro``'s k=8 scale
+configuration timed and profiled, its step loop checked for host syncs), the
 ``ops.olaf_enqueue`` entry point (the ``olaf_enqueue`` kernel), LM
 serving of smollm-360m at full width and depth (``launch.serve.serve``
 under ``attn_impl="pallas"``: every prefill layer is one
@@ -53,7 +56,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import olaf_queue  # noqa: E402
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.core.txctl import TxControlConfig  # noqa: E402
-from repro_torch.core import hybrid, netsim  # noqa: E402
+from repro_torch.core import hybrid, netsim, topology, vecsim  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,  # noqa: E402
                                                   decode_attention_plain)
@@ -773,6 +776,252 @@ HYBRID_COUNTERS = ("launches", "combined_updates", "forward_launches",
                    "switch_launches", "forwarded", "h2d_transfers",
                    "queue_stats", "residual_slot_counts", "link_dropped",
                    "rerouted")
+
+
+# ---------------------------------------------------------------------------
+# the vectorized simulator: the exact fat-tree run and the k=8 scale run
+# ---------------------------------------------------------------------------
+VECSIM_EXACT = ["--mode", "scenario", "--topology", "fattree", "--fattree-k",
+                "4", "--sim-dim", "941", "--sim-impl", "vectorized"]
+# repro's vecsim_scale k=8 row (benchmarks/bench_vecsim.py): 80 switches,
+# 1024 workers, a coarse uniform grid of 2^-11 s (256 boundaries + tail)
+VECSIM_SCALE = dict(k=8, spines=8, clusters_per_ingress=2,
+                    workers_per_cluster=8, gen_interval=2.0 ** -6,
+                    gen_jitter=0.3, size_bits=8192, horizon=0.125, seed=3)
+VECSIM_DT = 2.0 ** -11
+VECSIM_D = 941
+VECSIM_WIDTH = 8  # arrival columns the k=8 bursts need (its busiest step)
+VECSIM_PROFILED_STEPS = 32  # boundaries of the profiled repeat
+VECSIM_SYNC_STEPS = 64  # boundaries stepped under set_sync_debug_mode("error")
+
+
+def delivery_key(d):
+    """A delivery's metadata with its gen_time in float32 (the vectorized
+    model keeps times in float32, hazard H4; float32 rounding is monotone,
+    so a float64 max rounds to the float32 max)."""
+    t, u, _ = d
+    return (u.cluster_id, u.worker_id, float(np.float32(u.gen_time)),
+            u.agg_count, u.subsumed, t)
+
+
+def compare_deliveries(want, got, what, *, time_rtol, rtol, atol) -> float:
+    """The delivered metadata multisets equal, times within ``time_rtol``
+    relative, rows within ``rtol``/``atol``; returns the max |err|."""
+    require(len(want.delivered) == len(got.delivered) > 0,
+            f"{what}: {len(want.delivered)} against {len(got.delivered)} "
+            f"deliveries")
+    err = 0.0
+    for a, b in zip(sorted(want.delivered, key=delivery_key),
+                    sorted(got.delivered, key=delivery_key)):
+        require(delivery_key(a)[:5] == delivery_key(b)[:5],
+                f"{what}: delivered metadata differs")
+        require(abs(a[0] - b[0]) <= time_rtol * max(1.0, abs(a[0])),
+                f"{what}: delivery times differ")
+        pa, pb = a[2].float().cpu(), b[2].float().cpu()
+        require(torch.allclose(pb, pa, rtol=rtol, atol=atol),
+                f"{what}: payloads differ")
+        err = max(err, float((pa - pb).abs().max()))
+    return err
+
+
+def vecsim_scale_cfg():
+    spec = topology.fattree_spec(VECSIM_SCALE["k"],
+                                 spines=VECSIM_SCALE["spines"])
+    kw = {k: v for k, v in VECSIM_SCALE.items() if k not in ("k", "spines")}
+    return topology.build_sim_cfg(spec, **kw)
+
+
+def vecsim_rows(cfg):
+    """Seeded rows, one per generation the schedule holds (an upper bound
+    on the fresh sends), as the coarse-grid hybrid sizes them."""
+    gen_times, _ = netsim.generation_schedule(cfg)
+    n = sum(len(t) for t in gen_times.values())
+    return np.random.default_rng(3).normal(size=(n, VECSIM_D)).astype(
+        np.float32)
+
+
+def vecsim_segment(cfg, rows, dev, n_steps):
+    """The first ``n_steps`` boundaries of the scale run, staged and with
+    a fresh carry, ready to step: ``(runner, carry, ts)``."""
+    comp = vecsim.compile_scenario(cfg, dim=VECSIM_D, payload_rows=rows)
+    grid = vecsim.uniform_grid(cfg, VECSIM_DT, allow_coarse=True)
+    arrs = vecsim._stage(comp.arrays, dev)
+    runner = vecsim._Runner(comp.static, arrs, VECSIM_WIDTH,
+                            float(comp.arrays["horizon"]))
+    ts = torch.from_numpy(grid[:n_steps]).to(dev)
+    return runner, runner.init_carry(), ts
+
+
+def vecsim_phase(dev, scen) -> dict:
+    """``[vecsim]``: the vectorized simulator on the card.
+
+    (1) The fat-tree k=4 scenario command with ``--sim-impl vectorized``
+    at D = 941 on the trace-derived exact grid, held to the card's own
+    window run (``scen``, from ``[scenario]``: counters, the delivered
+    multiset, times and rows) and to the same command on the CPU (every
+    field, the residual slots included). (2) ``repro``'s ``vecsim_scale`` k=8 configuration at D = 941
+    through ``run_vecsim``: wall, boundaries/s, device events per step and
+    the card's idle share (a profiled repeat of a segment and its
+    unprofiled wall), peak memory; its counters equal a CPU run's. (3) A
+    segment stepped under ``torch.cuda.set_sync_debug_mode("error")``: the
+    step makes no host sync. The path launches none of the port's kernels
+    (its burst is plain PyTorch, as ``repro``'s is XLA). Returns the
+    exact run's launch counts."""
+    t_phase = time.perf_counter()
+    # ---- (1) the exact run -----------------------------------------------
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vec = launch_train.main(VECSIM_EXACT)
+    torch.cuda.synchronize()
+    wall_exact = time.perf_counter() - t0
+    counts = read_counts()
+    require(not any(counts.values()), f"the vecsim path launched a kernel: "
+            f"{counts}")
+    on = torch.device(dev).type
+    require(all(p.device.type == on and bool(torch.isfinite(p).all())
+                for _, _, p in vec.delivered), "[vecsim] exact run rows")
+    # the residual slots are not compared with the window run: the window
+    # replay keeps the head in service in its slot, the vectorized model
+    # in its service register (so in repro too the two differ here)
+    for f in ("queue_stats", "forwarded", "link_dropped", "rerouted",
+              "drops_by_switch"):
+        require(getattr(vec, f) == getattr(scen, f),
+                f"[vecsim] exact run: {f} differs from the window run")
+    err_w = compare_deliveries(scen, vec, "[vecsim] against window",
+                               time_rtol=2e-5, rtol=RTOL, atol=ATOL)
+    t0 = time.perf_counter()
+    host = launch_train.main(VECSIM_EXACT + ["--device", "cpu"])
+    wall_exact_cpu = time.perf_counter() - t0
+    for f in ("queue_stats", "residual_slot_counts", "forwarded",
+              "link_dropped", "rerouted", "combined_updates", "launches",
+              "h2d_transfers", "drops_by_switch"):
+        require(getattr(vec, f) == getattr(host, f),
+                f"[vecsim] exact run: {f} differs between card and CPU")
+    require(np.array_equal(vec.final_counts, host.final_counts),
+            "[vecsim] exact run: final_counts differ between card and CPU")
+    err_c = 0.0
+    for (t_a, u_a, p_a), (t_b, u_b, p_b) in zip(host.delivered,
+                                                vec.delivered):
+        require(t_a == t_b and dataclasses.astuple(u_a)
+                == dataclasses.astuple(u_b),
+                "[vecsim] exact run: delivery metadata differs between card "
+                "and CPU")
+        err_c = max(err_c, float((p_b.cpu() - p_a).abs().max()))
+    require(err_c <= 1e-6, f"[vecsim] exact run: card payloads differ from "
+            f"the CPU's by {err_c:.3g}")
+    log(f"[vecsim] fat-tree k=4 exact grid D={VECSIM_D}: {vec.launches} "
+        f"steps, {len(vec.delivered)} deliveries, card wall {wall_exact:.3f} "
+        f"s (CPU {wall_exact_cpu:.3f} s), {vec.h2d_transfers} h2d; equals "
+        f"the window run (max |err| {err_w:.3g}) and the CPU run (max |err| "
+        f"{err_c:.3g}); launch counts {counts}")
+
+    # ---- (2) the scale run ------------------------------------------------
+    cfg = vecsim_scale_cfg()
+    rows = vecsim_rows(cfg)
+    kw = dict(dt=VECSIM_DT, allow_coarse=True, dim=VECSIM_D,
+              payload_rows=rows, width=VECSIM_WIDTH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = vecsim.run_vecsim(cfg, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n_sw = len(cfg.switches)
+    require(n_sw == 80 and len(cfg.workers) == 1024,
+            f"the k=8 configuration has {n_sw} switches")
+    require(res.passes == 1, "the k=8 run outgrew its burst width")
+    require(res.delivered_payloads.device.type == on
+            and bool(torch.isfinite(res.delivered_payloads).all()),
+            "[vecsim] scale run rows")
+    # a segment unprofiled, then the same segment profiled: every step runs
+    # the same ops on the same shapes, so a segment is every step's cost
+    walls = []
+    for profiled in (False, True):
+        runner, carry, ts = vecsim_segment(cfg, rows, dev,
+                                           VECSIM_PROFILED_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            runner.run(carry, ts)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    seg_wall, seg_wall_p = walls
+    kernels = device_kernels(prof)
+    busy = sum(us for _, us in kernels.values()) / 1e6
+    events = sum(n for n, _ in kernels.values())
+    idle = idle_p = per_step = None
+    if busy:
+        idle, idle_p = (100 * (1 - busy / w) for w in (seg_wall, seg_wall_p))
+        per_step = events / VECSIM_PROFILED_STEPS
+    # the step loop under the sync check
+    runner, carry, ts = vecsim_segment(cfg, rows, dev, VECSIM_SYNC_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.run(carry, ts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the same configuration on the CPU: every counter equal
+    t0 = time.perf_counter()
+    res_c = vecsim.run_vecsim(cfg, device="cpu", **kw)
+    wall_cpu = time.perf_counter() - t0
+    for f in dataclasses.fields(res.sim):
+        a, b = getattr(res.sim, f.name), getattr(res_c.sim, f.name)
+        if f.name == "delivered_updates":
+            a = [dataclasses.astuple(u) for u in a]
+            b = [dataclasses.astuple(u) for u in b]
+        require(a == b, f"[vecsim] scale run: {f.name} differs between card "
+                f"and CPU")
+    for f in ("aom", "n_steps", "forwarded", "residual", "h2d_transfers"):
+        require(getattr(res, f) == getattr(res_c, f),
+                f"[vecsim] scale run: {f} differs between card and CPU")
+    require(np.array_equal(res.delivery_times, res_c.delivery_times)
+            and np.array_equal(res.final_counts, res_c.final_counts),
+            "[vecsim] scale run: delivery times or final counts differ")
+    err_s = float((res.delivered_payloads.cpu()
+                   - res_c.delivered_payloads).abs().max()) \
+        if len(res.delivery_times) else 0.0
+    require(err_s <= 1e-6, f"[vecsim] scale run payloads differ by {err_s}")
+    rate = res.n_steps / wall
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    log(f"[vecsim] scale fat-tree k=8 ({n_sw} switches, {len(cfg.workers)} "
+        f"workers) D={VECSIM_D} dt=2^-11 width {res.width}: "
+        f"{res.n_steps} boundaries in {wall:.3f} s wall = {rate:.2f} "
+        f"boundaries/s ({1e3 * wall / res.n_steps:.3f} ms/boundary), "
+        f"{res.sim.sent} sent, {len(res.delivery_times)} delivered, "
+        f"{res.forwarded} forwarded; peak memory {peak / 2**20:.1f} MiB "
+        f"above the {base / 2**20:.1f} MiB held; CPU run {wall_cpu:.3f} s, "
+        f"every counter equal (max |err| {err_s:.3g})")
+    if busy:
+        log(f"[vecsim] scale segment of {VECSIM_PROFILED_STEPS} boundaries: "
+            f"{seg_wall:.4f} s unprofiled, profiled repeat {seg_wall_p:.4f} "
+            f"s: device busy {busy:.4f} s in {events} device events "
+            f"({per_step:.1f} per step): idle share {idle:.2f}% of the "
+            f"unprofiled wall ({idle_p:.2f}% of the profiled one); the "
+            f"largest: " + "; ".join(f"{n[:50]} x{c} {us / 1e3:.3f} ms"
+                                    for n, (c, us) in top))
+    else:
+        log("[vecsim] device busy: not measured (the profiler recorded no "
+            "device events)")
+    log(f"[vecsim] {VECSIM_SYNC_STEPS} steps under set_sync_debug_mode"
+        f"(\"error\"): no host sync")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[vecsim] phase wall {phase_s:.1f} s")
+    log("[vecsim] json " + json.dumps(dict(
+        exact_steps=vec.launches, exact_wall_s=wall_exact,
+        exact_cpu_wall_s=wall_exact_cpu, scale_wall_s=wall,
+        boundaries_per_s=rate, n_steps=res.n_steps, width=res.width,
+        events_per_step=per_step, idle_share=idle, idle_share_profiled=idle_p,
+        peak_bytes=peak, scale_cpu_wall_s=wall_cpu, phase_s=phase_s,
+        max_abs_err=max(err_w, err_c, err_s))))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1788,6 +2037,9 @@ def main() -> int:
             "the scenario never called ops.olaf_forward")
     fwd_err = max(fwd_err, check_forward("scenario's own", scen_fwd.args))
 
+    # ---- 4c'. the vectorized simulator: k=4 exact, k=8 scale ---------------
+    vecsim_counts = vecsim_phase(dev, scen)
+
     # ---- 4d. the enqueue entry point: a stream of bursts at D = 941 -------
     reset_counts()
     st_card = queue_init(8, 941, device=dev)
@@ -1871,7 +2123,8 @@ def main() -> int:
     attn_times = time_attention(attn_checked, reps=10)
     log(f"[time] total smoke wall {time.perf_counter() - t_start:.1f} s")
     paths = dict(trainer=trainer_counts, hybrid_ppo=hybrid_counts,
-                 scenario=scenario_counts, enqueue=enqueue_counts,
+                 scenario=scenario_counts, vecsim=vecsim_counts,
+                 enqueue=enqueue_counts,
                  serve=serve_counts, train=train["counts"])
 
     def by_path(name):

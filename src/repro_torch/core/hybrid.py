@@ -42,6 +42,9 @@ two give the same bits.
 The counters of :class:`HybridResult` (``h2d_transfers``, ``launches``,
 ``forward_launches``, ``switch_launches``, ``combined_updates``) count
 puts and dispatches exactly as ``repro`` counts them on the same trace.
+``sim_impl="vectorized"`` replaces the replay with the vectorized model
+(:mod:`repro_torch.core.vecsim`); there ``launches`` counts its steps,
+one per grid boundary, where ``repro`` counts its one fused scan as 1.
 Delivered rows are tensors on ``device`` (copies, never views of the slot
 buffer); ``final_counts`` is an int32 numpy array.
 """
@@ -57,8 +60,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregation import Update
+from repro_torch.core import vecsim
 from repro_torch.core.netsim import (NetworkSimulator, SimCfg,
-                                     apply_corruption, multihop_cfg)
+                                     apply_corruption, generation_schedule,
+                                     multihop_cfg)
 from repro_torch.core.olaf_queue import (EV_AGG, EV_DROP, EV_RESET,
                                          EVENT_OF_CLASS, PyOlafQueue,
                                          burst_contribution_mask)
@@ -681,10 +686,17 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
     (a :class:`~repro_torch.core.topology.TopologySpec`, or a prebuilt
     ``SimCfg`` preset), else the §8.3 ``multihop_cfg(**cfg_kw)``.
     ``sim_impl`` is ``"event"`` (per-event replay, ``batched=False``),
-    ``"window"`` (windowed replay, ``batched=True``) or ``None`` (keep
-    ``batched``); ``"vectorized"`` (the device-resident scan) is not ported
-    yet and raises. ``sim_dt``/``sim_mesh`` belong to it and raise
-    ``ValueError`` with any other backend.
+    ``"window"`` (windowed replay, ``batched=True``), ``None`` (keep
+    ``batched``) or ``"vectorized"``: the whole scenario runs through
+    :func:`repro_torch.core.vecsim.run_vecsim` on ``device`` (payload
+    combining, forwarding, AoM and transmission gating on the device; the
+    event heap runs once, metadata only, to lay down the step grid).
+    ``sim_dt`` (vectorized only) replaces that exact grid with a uniform
+    one: a float is the step (``allow_coarse``), ``"auto"`` picks it with
+    :func:`~repro_torch.core.vecsim.auto_dt`; with ``sim_dt`` and no
+    ``payload_source`` the event heap never runs. ``sim_mesh`` (the
+    sharded scan) is not ported (ROADMAP queue 1 item 5) and raises.
+    ``sim_dt``/``sim_mesh`` raise ``ValueError`` with any other backend.
 
     ``payload_rows`` (N, dim) are consumed in worker-generation order;
     ``payload_source(now, worker_id) -> (row, reward)`` makes each
@@ -701,11 +713,10 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
     if sim_impl != "vectorized" and (sim_dt is not None
                                      or sim_mesh is not None):
         raise ValueError("sim_dt/sim_mesh require sim_impl='vectorized'")
-    if sim_impl == "vectorized":
+    if sim_mesh is not None:
         raise NotImplementedError(
-            "sim_impl='vectorized' (repro.core.vecsim, the device-resident "
-            "scan) is not ported yet: it is the vecsim slice, ROADMAP queue "
-            "1 item 4; use 'event' or 'window'")
+            "sim_mesh (the sharded vectorized simulator) is not ported yet: "
+            "it is ROADMAP queue 1 item 5; run on one device")
     if sim_impl == "event":
         batched = False
     elif sim_impl == "window":
@@ -717,10 +728,24 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
         cfg = resolve_sim_cfg(topology, seed=seed, **cfg_kw)
     else:
         cfg = multihop_cfg("olaf", seed=seed, **cfg_kw)
+    if (sim_impl == "vectorized" and sim_dt is not None
+            and payload_source is None):
+        # the uniform grid needs no oracle trace, so the event heap never
+        # runs: rows are sized by the generation schedule (an upper bound
+        # on fresh sends)
+        if payload_rows is None:
+            gen_times, _ = generation_schedule(cfg)
+            n_gen = sum(len(t) for t in gen_times.values())
+            rng = np.random.default_rng(seed + 1)
+            payload_rows = rng.normal(
+                size=(max(n_gen, 1), dim)).astype(np.float32)
+        return _run_hybrid_vectorized(cfg, None, dim, payload_rows, [], dev,
+                                      sim_dt=sim_dt), cfg
     events: List[Tuple[float, str, str, Optional[Update]]] = []
     trace_cfg = dataclasses.replace(
         cfg, on_queue_event=lambda now, sw, kind, upd: events.append(
             (now, sw, kind, upd)))
+    rew_acc: List[Tuple[float, int, float]] = []
     if payload_source is not None:
         if payload_rows is not None:
             raise ValueError("pass payload_rows or payload_source, not both")
@@ -729,6 +754,7 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
         def _collect(now, worker_id):
             row, reward = payload_source(now, worker_id)
             rows_acc.append(row)
+            rew_acc.append((now, worker_id, reward))
             return None, reward  # metadata-only sim; rows stay on the host
 
         trace_cfg = dataclasses.replace(trace_cfg, payload_fn=_collect)
@@ -746,6 +772,9 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
             rng = np.random.default_rng(seed + 1)
             payload_rows = rng.normal(
                 size=(n_fresh, dim)).astype(np.float32)
+    if sim_impl == "vectorized":
+        return _run_hybrid_vectorized(cfg, events, dim, payload_rows,
+                                      rew_acc, dev, sim_dt=sim_dt), cfg
     plane = HybridMultiSwitchDataPlane(
         cfg.switches, {w.ingress_switch for w in cfg.workers}, dim,
         payload_rows, sharded=sharded, flush_cadence=flush_cadence,
@@ -756,3 +785,78 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
         for now, sw, kind, meta in events:
             plane.feed(now, sw, kind, meta)
     return plane.result(), cfg
+
+
+def _run_hybrid_vectorized(cfg: SimCfg, events, dim: int, payload_rows,
+                           rewards, dev: torch.device,
+                           sim_dt=None) -> HybridResult:
+    """Consume the scenario through :func:`repro_torch.core.vecsim.
+    run_vecsim` on ``dev`` instead of replaying the trace window by window:
+    ``repro``'s ``_run_hybrid_vectorized``. Rows are consumed in global
+    send order, the trace's fresh-enqueue order; ``rewards`` are the
+    ``(now, worker_id, reward)`` triples ``payload_source`` returned, laid
+    onto each worker's generation schedule.
+
+    ``launches`` counts the boundaries stepped (``n_steps``; ``repro``'s
+    one fused ``lax.scan`` dispatch is 1), ``h2d_transfers`` the staged
+    host-to-device copies. Delivered rows are tensors on ``dev``."""
+    gen_rewards = None
+    if rewards:
+        gen_times, _ = generation_schedule(cfg)
+        widx = {w.worker_id: i for i, w in enumerate(cfg.workers)}
+        g_max = max((len(t) for t in gen_times.values()), default=1)
+        gen_rewards = np.zeros((len(cfg.workers), g_max), np.float32)
+        ptr = {wid: 0 for wid in gen_times}
+        for now, wid, rw in rewards:
+            ts_w = gen_times[wid]
+            k = ptr[wid]
+            while k < len(ts_w) and ts_w[k] < now - 1e-9:
+                k += 1
+            if k >= len(ts_w) or abs(ts_w[k] - now) > 1e-6:
+                raise RuntimeError(
+                    f"reward at t={now} does not align with worker {wid}'s "
+                    f"generation schedule")
+            gen_rewards[widx[wid], k] = rw
+            ptr[wid] = k + 1
+    rows = None
+    if payload_rows is not None and len(payload_rows):
+        rows = np.asarray(payload_rows, np.float32).reshape(-1, dim)
+    if sim_dt is None:
+        grid_kw = dict(grid=vecsim.grid_from_trace(cfg, events))
+    else:
+        dt = (vecsim.auto_dt(cfg, dim=dim, device=dev) if sim_dt == "auto"
+              else float(sim_dt))
+        grid_kw = dict(dt=dt, allow_coarse=True)
+    vres = vecsim.run_vecsim(cfg, dim=dim, payload_rows=rows,
+                             gen_rewards=gen_rewards, device=dev, **grid_kw)
+    sim = vres.sim
+    delivered = list(zip((float(t) for t in vres.delivery_times),
+                         sim.delivered_updates,
+                         vres.delivered_payloads.unbind(0)))
+    residual_slot_counts = {
+        sw.name: {slot: int(c)
+                  for slot, c in enumerate(vres.final_counts[i]) if int(c)}
+        for i, sw in enumerate(cfg.switches)}
+    return HybridResult(
+        delivered=delivered,
+        launches=vres.n_steps,
+        combined_updates=sum(qs["enqueued"]
+                             for qs in sim.queue_stats.values()),
+        queue_stats=sim.queue_stats,
+        final_counts=vres.final_counts,
+        residual_slot_counts=residual_slot_counts,
+        h2d_transfers=vres.h2d_transfers,
+        forward_launches=0,
+        switch_launches={},
+        forwarded=vres.forwarded,
+        link_dropped=sim.link_dropped,
+        rerouted=sim.reroutes,
+        drops_by_switch=sim.drops_by_switch,
+        ps_dropped=sim.ps_dropped,
+        stale_rejected=sim.stale_rejected,
+        stale_deferred=sim.stale_deferred,
+        worker_crashes=sim.worker_crashes,
+        worker_restarts=sim.worker_restarts,
+        corrupted=sim.corrupted,
+        screened=sim.screened,
+        tainted_delivered=sim.tainted_delivered)

@@ -11,6 +11,10 @@ Two interchangeable implementations:
     These functions are the plain PyTorch version of the fused CUDA
     ``olaf_step`` kernel (``repro_torch.kernels.olaf_step``): the CPU path
     and the yardstick the kernel is held to on the card.
+  * :func:`enqueue_one` / :func:`enqueue_batch` / :func:`dequeue_one` —
+    the single-slot oracles (``repro``'s ``jax_enqueue``,
+    ``jax_enqueue_batch``, ``jax_dequeue``); the vectorized simulator
+    (``core/vecsim.py``) starts service through :func:`dequeue_one`.
   * :func:`screen_mask` — the PS step's ingress screen on the device.
 
 Semantics (paper §4 + §12.1):
@@ -377,81 +381,101 @@ def _burst_resolve(state: TorchQueueState, clusters, workers, gen_times,
     at any index. ``in_counts`` weights an incoming row that is already the
     mean of k updates; ``in_replaceable`` is its replace flag.
 
+    One queue (``(Q,)`` metadata, ``(U,)`` burst), or S queues walked side
+    by side: a leading S axis on the state and the burst, with
+    ``reward_threshold`` and ``capacity`` a number or ``(S,)`` (the vmap of
+    ``repro``'s ``ops.olaf_burst_multi``).
+
     Returns ``(carry, slots, events)`` with ``carry`` the post-burst
     ``(cluster, worker, seq, gen_time, reward, agg_count, replaceable,
     next_seq, n_dropped, n_agg, n_repl, n_screened)``. Every op stays on
     the state's device; nothing syncs with the host.
     """
     dev = state.cluster.device
-    U = clusters.shape[0]
-    Q = state.cluster.shape[0]
-    ones = torch.ones(U, dtype=torch.bool, device=dev)
+    U = clusters.shape[-1]
+    Q = state.cluster.shape[-1]
+    lead = tuple(state.cluster.shape[:-1])
+    i32 = torch.int32
+    ones = torch.ones(clusters.shape, dtype=torch.bool, device=dev)
     send = ones if send is None else send.to(torch.bool)
     screen = ~ones if screen is None else screen.to(torch.bool)
-    in_counts = (torch.ones(U, dtype=torch.int32, device=dev)
-                 if in_counts is None else in_counts.to(torch.int32))
+    in_counts = (torch.ones(clusters.shape, dtype=i32, device=dev)
+                 if in_counts is None else in_counts.to(i32))
     in_replaceable = ones if in_replaceable is None else in_replaceable.to(torch.bool)
     cap_count = torch.as_tensor(Q if capacity is None else capacity,
-                                dtype=torch.int32, device=dev)
+                                dtype=i32, device=dev)
     qidx = torch.arange(Q, device=dev)
-    cl, wk, sq = state.cluster.clone(), state.worker.clone(), state.seq.clone()
-    gt, rw = state.gen_time.clone(), state.reward.clone()
-    cnt, rp = state.agg_count.clone(), state.replaceable.clone()
-    nseq, nd, na, nr, ns = (state.next_seq.clone(), state.n_dropped.clone(),
-                            state.n_agg.clone(), state.n_repl.clone(),
-                            state.n_screened.clone())
-    slots = torch.zeros(U, dtype=torch.int32, device=dev)
-    events = torch.zeros(U, dtype=torch.int32, device=dev)
-
-    def at(vec, idx):  # vec[idx] for a 0-dim index tensor, without a sync
-        return vec.index_select(0, idx.view(1))[0]
-
+    # the metadata rides in two packs, so reading the hit slot and writing
+    # the target slot is one op per pack: ints (cluster, worker, seq,
+    # agg_count, replaceable) and floats (gen_time, reward)
+    P = torch.stack([state.cluster, state.worker, state.seq, state.agg_count,
+                     state.replaceable.to(i32)], dim=-1)
+    F = torch.stack([state.gen_time, state.reward], dim=-1)
+    nseq = state.next_seq
+    cols = [x.unbind(-1) for x in (
+        clusters.to(i32), workers.to(i32), gen_times.to(torch.float32),
+        rewards.to(torch.float32), send & ~screen, in_counts, in_replaceable)]
+    hits, slots, events = [], [], []
     for u in range(U):
-        c, w, t, r = clusters[u], workers[u], gen_times[u], rewards[u]
-        snd, scr, icnt, irp = send[u], screen[u], in_counts[u], in_replaceable[u]
-        act = snd & ~scr  # sent AND admitted by the ingress screen
+        # act: sent AND admitted by the ingress screen
+        c, w, t, r, act, icnt, irp = (col[u] for col in cols)
+        cl = P[..., 0]
         occupied = cl >= 0
-        same = occupied & (cl == c)
-        hit = same.any()
+        same = occupied & (cl == c.unsqueeze(-1))
+        hit = same.any(dim=-1)
         # argmax returns the first maximal index, as jnp.argmax does
-        slot_hit = torch.argmax(same.to(torch.uint8))
+        slot_hit = torch.argmax(same.to(torch.uint8), dim=-1)
+        idx = slot_hit.view(*lead, 1, 1)
+        ph = P.gather(-2, idx.expand(*lead, 1, 5)).squeeze(-2)
+        fh = F.gather(-2, idx.expand(*lead, 1, 2)).squeeze(-2)
+        h_gt, h_rw = fh[..., 0], fh[..., 1]
 
-        swr = act & hit & at(rp, slot_hit) & (at(wk, slot_hit) == w)
-        rdiff = r - at(rw, slot_hit)
+        swr = act & hit & (ph[..., 4] != 0) & (ph[..., 1] == w)
+        rdiff = r - h_rw
         do_rr = act & hit & ~swr & (rdiff > reward_threshold)
         do_rd = act & hit & ~swr & (rdiff < -reward_threshold)
         do_agg = act & hit & ~swr & ~do_rr & ~do_rd
-        full = occupied.sum() >= cap_count
+        full = occupied.sum(dim=-1) >= cap_count
         do_append = act & ~hit & ~full
-        do_dropf = act & ~hit & full
 
         slot = torch.where(hit, slot_hit,
-                           torch.argmax((~occupied).to(torch.uint8)))
+                           torch.argmax((~occupied).to(torch.uint8), dim=-1))
         write = swr | do_rr | do_agg | do_append
-        onehot = (qidx == slot) & write
-
-        def put(old, new):
-            return torch.where(onehot, new, old)
-
-        cl = put(cl, c)
-        wk = put(wk, w)
-        sq = put(sq, torch.where(hit, at(sq, slot_hit), nseq))
-        gt = put(gt, torch.where(do_agg, torch.maximum(t, at(gt, slot_hit)), t))
-        rw = put(rw, torch.where(do_agg, torch.maximum(r, at(rw, slot_hit)), r))
-        cnt = put(cnt, torch.where(do_agg, at(cnt, slot_hit) + icnt, icnt))
+        onehot = ((qidx == slot.unsqueeze(-1))
+                  & write.unsqueeze(-1)).unsqueeze(-1)
         # replaceable after the write: a same-worker replace keeps one
         # un-aggregated update; an append takes the row's own flag;
         # aggregation and reward-replace are combine events and clear it
-        rp = put(rp, swr | (do_append & irp))
-        nseq = nseq + do_append.to(torch.int32)
-        nd = nd + (do_dropf | do_rd).to(torch.int32)
-        na = na + do_agg.to(torch.int32)
-        nr = nr + (swr | do_rr).to(torch.int32)
-        ns = ns + (snd & scr).to(torch.int32)
-        slots[u] = slot.to(torch.int32)
-        events[u] = torch.where(do_agg, EV_AGG,
-                                torch.where(write, EV_RESET, EV_DROP))
-    carry = (cl, wk, sq, gt, rw, cnt, rp, nseq, nd, na, nr, ns)
+        new_p = torch.stack([
+            c, w, torch.where(hit, ph[..., 2], nseq),
+            torch.where(do_agg, ph[..., 3] + icnt, icnt),
+            (swr | (do_append & irp)).to(i32)], dim=-1)
+        new_f = torch.stack([
+            torch.where(do_agg, torch.maximum(t, h_gt), t),
+            torch.where(do_agg, torch.maximum(r, h_rw), r)], dim=-1)
+        P = torch.where(onehot, new_p.unsqueeze(-2), P)
+        F = torch.where(onehot, new_f.unsqueeze(-2), F)
+        nseq = nseq + do_append.to(i32)
+        hits.append(hit)
+        slots.append(slot)
+        events.append(torch.where(do_agg, EV_AGG,
+                                  torch.where(write, EV_RESET, EV_DROP)))
+    slots = torch.stack(slots, dim=-1).to(i32)
+    events = torch.stack(events, dim=-1).to(i32)
+    hit_all = torch.stack(hits, dim=-1)
+    # the counters from the event stream: an admitted row that wrote
+    # nothing was dropped (queue full, or reward-gated); a reset into a
+    # hit slot is a replacement, into a free one an append
+    act_all = send & ~screen
+    nd = state.n_dropped + (act_all & (events == EV_DROP)).sum(
+        dim=-1, dtype=i32)
+    na = state.n_agg + (events == EV_AGG).sum(dim=-1, dtype=i32)
+    nr = state.n_repl + ((events == EV_RESET) & hit_all).sum(dim=-1,
+                                                             dtype=i32)
+    ns = state.n_screened + (send & screen).sum(dim=-1, dtype=i32)
+    cl, wk, sq, cnt, rp = (x.contiguous() for x in P.unbind(-1))
+    gt, rw = (x.contiguous() for x in F.unbind(-1))
+    carry = (cl, wk, sq, gt, rw, cnt, rp != 0, nseq, nd, na, nr, ns)
     return carry, slots, events
 
 
@@ -461,7 +485,8 @@ def enqueue_burst_ex(state: TorchQueueState, clusters, workers, gen_times,
                      in_replaceable=None):
     """:func:`enqueue_burst` plus the per-update ``(slots, events)``
     assignment of :func:`_burst_resolve`. Returns
-    ``(new_state, slots, events)``.
+    ``(new_state, slots, events)``. One queue, or S queues with a leading
+    S axis on the state and the burst (as :func:`_burst_resolve`).
 
     The payload half telescopes the chain of per-update running means:
 
@@ -471,39 +496,40 @@ def enqueue_burst_ex(state: TorchQueueState, clusters, workers, gen_times,
     aggregates after it contribute, and ``base_n`` is the old ``agg_count``
     of a slot that saw no reset in the burst, else 0.
     """
-    U = clusters.shape[0]
+    U = clusters.shape[-1]
     dev = state.cluster.device
     if U == 0:  # empty burst (drain-only cycle): nothing to resolve
-        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        empty = torch.zeros(clusters.shape, dtype=torch.int32, device=dev)
         return state, empty, empty
     if in_counts is None:
-        in_counts = torch.ones(U, dtype=torch.int32, device=dev)
+        in_counts = torch.ones(clusters.shape, dtype=torch.int32, device=dev)
     carry, slots, events = _burst_resolve(
         state, clusters, workers, gen_times, rewards, reward_threshold, send,
         capacity, screen, in_counts, in_replaceable)
     (cl, wk, sq, gt, rw, cnt, rp, nseq, nd, na, nr, ns) = carry
 
-    Q = state.cluster.shape[0]
+    Q = state.cluster.shape[-1]
     u_idx = torch.arange(U, dtype=torch.int32, device=dev)
-    onehot = slots[:, None] == torch.arange(Q, dtype=torch.int32,
-                                            device=dev)[None, :]  # (U, Q)
+    onehot = slots.unsqueeze(-1) == torch.arange(
+        Q, dtype=torch.int32, device=dev)  # (..., U, Q)
     is_reset = events == EV_RESET
     is_agg = events == EV_AGG
     # last reset per slot: everything written before it was overwritten
-    last_reset = torch.where(is_reset[:, None] & onehot, u_idx[:, None],
-                             -1).amax(dim=0)  # (Q,)
-    lr_u = last_reset[slots.long()]
+    last_reset = torch.where(is_reset.unsqueeze(-1) & onehot,
+                             u_idx.unsqueeze(-1), -1).amax(dim=-2)  # (..., Q)
+    lr_u = last_reset.gather(-1, slots.long())
     contributes = (is_agg & (u_idx > lr_u)) | (is_reset & (u_idx == lr_u))
-    seg = ((onehot & contributes[:, None]).to(torch.float32)
-           * in_counts.to(torch.float32)[:, None])  # (U, Q)
-    sums = seg.T @ payloads.to(torch.float32)  # (Q, D) one-hot segment sum
-    n_contrib = seg.sum(dim=0)
+    seg = ((onehot & contributes.unsqueeze(-1)).to(torch.float32)
+           * in_counts.to(torch.float32).unsqueeze(-1))  # (..., U, Q)
+    # one-hot segment sum (..., Q, D)
+    sums = seg.transpose(-1, -2) @ payloads.to(torch.float32)
+    n_contrib = seg.sum(dim=-2)
     base_n = torch.where(last_reset < 0, state.agg_count, 0).to(torch.float32)
     touched = (last_reset >= 0) | (n_contrib > 0)
     denom = torch.clamp(base_n + n_contrib, min=1.0)
-    combined = ((state.payload.to(torch.float32) * base_n[:, None] + sums)
-                / denom[:, None])
-    new_payload = torch.where(touched[:, None],
+    combined = ((state.payload.to(torch.float32) * base_n.unsqueeze(-1)
+                 + sums) / denom.unsqueeze(-1))
+    new_payload = torch.where(touched.unsqueeze(-1),
                               combined.to(state.payload.dtype), state.payload)
     new_state = TorchQueueState(
         cluster=cl, worker=wk, seq=sq, gen_time=gt, reward=rw, agg_count=cnt,
@@ -569,6 +595,133 @@ def dequeue_burst(state: TorchQueueState, k: int
         replaceable=clear(state.replaceable, False),
         payload=torch.where(popped[:, None], 0.0, state.payload),
     )
+    return new_state, out
+
+
+def enqueue_one(state: TorchQueueState, cluster, worker, gen_time, reward,
+                payload, reward_threshold: float = math.inf,
+                capacity=None) -> TorchQueueState:
+    """Algorithm 1 for one incoming update into one queue, ``repro``'s
+    ``jax_enqueue`` (the single-slot oracle of the burst routes).
+
+    Unlike :func:`_burst_resolve` it tests fullness by slot REGION:
+    ``capacity`` (default Q) caps the logical slot count, the queue is full
+    when every slot below it is occupied, and an append takes the first
+    empty slot below it (ROADMAP hazard H1). An aggregate writes the running
+    mean ``(old·n + new)/(n + 1)`` at once. Scalars are numbers or 0-dim
+    tensors; ``payload`` is (D,). Leaves its input state untouched.
+    """
+    dev = state.cluster.device
+    Q = state.cluster.shape[0]
+
+    def scalar(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    cluster, worker = scalar(cluster, torch.int32), scalar(worker, torch.int32)
+    gen_time = scalar(gen_time, torch.float32)
+    reward = scalar(reward, torch.float32)
+    payload = torch.as_tensor(payload, device=dev).to(state.payload.dtype)
+    qidx = torch.arange(Q, device=dev)
+    valid_slot = qidx < (Q if capacity is None else scalar(capacity,
+                                                           torch.int32))
+    occupied = state.cluster >= 0
+    same = occupied & (state.cluster == cluster)
+    hit = same.any()
+    slot_hit = torch.argmax(same.to(torch.uint8))  # first, as jnp.argmax
+    w_reward, w_cnt = state.reward[slot_hit], state.agg_count[slot_hit]
+    swr = hit & state.replaceable[slot_hit] & (state.worker[slot_hit] == worker)
+    rdiff = reward - w_reward
+    do_rr = hit & ~swr & (rdiff > reward_threshold)
+    do_rd = hit & ~swr & (rdiff < -reward_threshold)
+    do_agg = hit & ~swr & ~do_rr & ~do_rd
+    full = (occupied | ~valid_slot).all()
+    do_append = ~hit & ~full
+    do_dropf = ~hit & full
+    agg_payload = ((state.payload[slot_hit] * w_cnt.to(payload.dtype)
+                    + payload) / (w_cnt + 1).to(payload.dtype))
+    slot = torch.where(hit, slot_hit,
+                       torch.argmax((~occupied & valid_slot).to(torch.uint8)))
+    write = swr | do_rr | do_agg | do_append
+    onehot = (qidx == slot) & write
+
+    def put(old, new):
+        return torch.where(onehot, new, old)
+
+    return TorchQueueState(
+        cluster=put(state.cluster, cluster),
+        worker=put(state.worker, worker),
+        seq=put(state.seq, torch.where(hit, state.seq[slot_hit],
+                                       state.next_seq)),
+        gen_time=put(state.gen_time, torch.where(
+            do_agg, torch.maximum(gen_time, state.gen_time[slot_hit]),
+            gen_time)),
+        reward=put(state.reward, torch.where(
+            do_agg, torch.maximum(reward, w_reward), reward)),
+        agg_count=put(state.agg_count, torch.where(
+            do_agg, w_cnt + 1, torch.ones_like(w_cnt))),
+        replaceable=put(state.replaceable, swr | do_append),
+        payload=torch.where(onehot[:, None],
+                            torch.where(do_agg, agg_payload, payload)[None, :],
+                            state.payload),
+        next_seq=state.next_seq + do_append.to(torch.int32),
+        n_dropped=state.n_dropped + (do_dropf | do_rd).to(torch.int32),
+        n_agg=state.n_agg + do_agg.to(torch.int32),
+        n_repl=state.n_repl + (swr | do_rr).to(torch.int32),
+        n_screened=state.n_screened)
+
+
+def enqueue_batch(state: TorchQueueState, clusters, workers, gen_times,
+                  rewards, payloads, reward_threshold: float = math.inf,
+                  capacity=None) -> TorchQueueState:
+    """Sequential batch enqueue, ``repro``'s ``jax_enqueue_batch``: one
+    :func:`enqueue_one` per update, in order. The slow-path oracle the
+    burst routes are held to, not a hot path."""
+    for u in range(clusters.shape[0]):
+        state = enqueue_one(state, clusters[u], workers[u], gen_times[u],
+                            rewards[u], payloads[u], reward_threshold,
+                            capacity)
+    return state
+
+
+def dequeue_one(state: TorchQueueState
+                ) -> Tuple[TorchQueueState, Dict[str, torch.Tensor]]:
+    """Pop the slot with the smallest ``seq``, ``repro``'s ``jax_dequeue``:
+    one queue, or S queues at once (a leading S axis, as ``repro``'s vecsim
+    vmaps it). The lowest slot wins a tie (ROADMAP hazard H2), so an empty
+    queue names slot 0 with ``valid`` False and changes nothing. ``out``
+    holds ``valid``, ``cluster``, ``worker``, ``gen_time``, ``reward``,
+    ``agg_count`` and ``payload`` of that slot as they were before the
+    clear, an invalid row included (H6); the popped slot keeps its
+    ``gen_time``."""
+    Q, D = state.payload.shape[-2:]
+    slot = torch.argmin(state.seq, dim=-1)  # first minimal index on a tie
+    idx = slot.unsqueeze(-1)
+
+    def at(vec):
+        return vec.gather(-1, idx).squeeze(-1)
+
+    valid = at(state.cluster) >= 0
+    row = state.payload.gather(
+        -2, idx.unsqueeze(-1).expand(*idx.shape, D)).squeeze(-2)
+    out = dict(valid=valid, cluster=at(state.cluster),
+               worker=at(state.worker), gen_time=at(state.gen_time),
+               reward=at(state.reward), agg_count=at(state.agg_count),
+               payload=row)
+    onehot = ((torch.arange(Q, device=state.device) == idx)
+              & valid.unsqueeze(-1))
+
+    def clear(vec, value):  # a number, so nothing is copied to the card
+        return torch.where(onehot, value, vec)
+
+    new_state = dataclasses.replace(
+        state,
+        cluster=clear(state.cluster, -1),
+        worker=clear(state.worker, -1),
+        seq=clear(state.seq, EMPTY_SEQ),
+        reward=clear(state.reward, -math.inf),
+        agg_count=clear(state.agg_count, 0),
+        replaceable=clear(state.replaceable, False),
+        payload=torch.where(onehot.unsqueeze(-1), 0.0, state.payload))
     return new_state, out
 
 

@@ -7,6 +7,8 @@ The counterparts of ``repro.kernels.ops``'s ``olaf_combine``,
 operands launch the hand-written kernel; CPU operands take the kernel's
 plain PyTorch version. Any other device, or operands spread over more than
 one device, raises: there is no fallback from one to the other.
+``olaf_burst_multi`` has no kernel (``repro`` runs it in XLA, outside any
+Pallas kernel): it is plain PyTorch on either device.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.olaf_queue import TorchQueueState, expire_inactive_drains
+from repro_torch.core.olaf_queue import (TorchQueueState, enqueue_burst_ex,
+                                         expire_inactive_drains)
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -162,6 +165,41 @@ def olaf_step(state: TorchQueueState, clusters, workers, gen_times, rewards,
     if active_workers is not None:
         out = expire_inactive_drains(out, active_workers)
     return state, out
+
+
+def olaf_burst_multi(states: TorchQueueState, clusters, workers, gen_times,
+                     rewards, payloads, reward_threshold=math.inf, send=None,
+                     capacity=None, in_counts=None, in_replaceable=None):
+    """Multi-queue enqueue-only burst with per-update event reporting: the
+    counterpart of ``repro.kernels.ops.olaf_burst_multi``, the entry the
+    vectorized simulator (:mod:`repro_torch.core.vecsim`) routes its
+    arrival bursts through.
+
+    Every operand carries a leading S (switch) axis: ``states`` of (S, Q),
+    (S, Q, D) and (S,) tensors, the burst (S, U) and (S, U, D),
+    ``reward_threshold`` and ``capacity`` a number or (S,). ``send``
+    (False = withheld), ``in_counts`` (a row that is already the mean of k
+    updates) and ``in_replaceable`` are (S, U). Returns ``(new_states,
+    slots (S, U), events (S, U))`` with the Algorithm 1 outcome codes of
+    :func:`~repro_torch.core.olaf_queue.enqueue_burst_ex`, whose S-queue
+    walk it is: a capacity is a slot count, as ``_burst_resolve`` has it
+    (ROADMAP hazard H1). No drain. Plain PyTorch on either device; the
+    passed-in state is left untouched.
+    """
+    dev = _device_of(*states.fields().values(), clusters, workers,
+                     gen_times, rewards, payloads, send, capacity, in_counts,
+                     in_replaceable, op="olaf_burst_multi")
+    if clusters.dim() != 2:
+        raise ValueError(f"olaf_burst_multi: the burst must be (S, U), got "
+                         f"{tuple(clusters.shape)}")
+    S = clusters.shape[0]
+    thr = torch.as_tensor(reward_threshold, dtype=torch.float32,
+                          device=dev).expand(S)
+    cap = states.cluster.shape[1] if capacity is None else capacity
+    cap = torch.as_tensor(cap, dtype=torch.int32, device=dev).expand(S)
+    return enqueue_burst_ex(states, clusters, workers, gen_times, rewards,
+                            payloads, thr, send, cap, None, in_counts,
+                            in_replaceable)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -12,7 +12,9 @@ The counterpart of ``repro.launch.train``, with its flags plus ``--device``
     multi-switch data plane (:func:`run_scenario`).
 
 The LM modes take the dense family (other families come with ROADMAP queue
-1 item 7a; ``--sim-impl vectorized`` with item 4). There is no
+1 item 7a). The scenario mode takes ``--sim-impl vectorized`` (and
+``--sim-dt``) on one device; ``--sim-shards``/``--sim-worker-shards``
+above 1 come with item 5. There is no
 ``--step-impl``: the tensors' device picks the ``olaf_step`` route
 (``kernels/ops.py``). Examples:
 
@@ -22,6 +24,9 @@ The LM modes take the dense family (other families come with ROADMAP queue
         --workers 4 --batch 32 --seq 256 --ingress-screen --steps 6
     PYTHONPATH=src python -m repro_torch.launch.train --mode scenario \\
         --topology fattree --fattree-k 4 --sim-dim 941 --sim-impl window
+    PYTHONPATH=src python -m repro_torch.launch.train --mode scenario \\
+        --topology fattree --fattree-k 2 --sim-dim 24 --sim-impl vectorized \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -514,7 +519,9 @@ def run_sync(cfg, args, device=None) -> SyncResult:
 def run_scenario(args):
     """Replay a topology scenario through the hybrid data plane with the
     selected backend (``event``: one event per call; ``window``: batched
-    per transmission window) and print one summary line."""
+    per transmission window; ``vectorized``: the vectorized model, one
+    step per grid boundary, on ``--sim-dt``'s uniform grid if given) and
+    print one summary line."""
     if args.topology == "fattree":
         sim_cfg = fattree_cfg(args.fattree_k, seed=args.seed,
                               spec_kw=dict(spines=args.fattree_spines))
@@ -522,10 +529,13 @@ def run_scenario(args):
         sim_cfg = multirack_cfg(seed=args.seed)
     else:
         sim_cfg = None  # §8.3 SW1/SW2/SW3 multihop default
+    sim_dt = args.sim_dt
+    if sim_dt not in (None, "auto"):
+        sim_dt = float(sim_dt)
     t0 = time.time()
     hyb, _cfg = run_hybrid_multihop(args.sim_dim, seed=args.seed,
                                     sim_cfg=sim_cfg, sim_impl=args.sim_impl,
-                                    device=args.device)
+                                    sim_dt=sim_dt, device=args.device)
     wall = time.time() - t0
     enq = sum(qs["enqueued"] for qs in hyb.queue_stats.values())
     agg = sum(qs["aggregations"] for qs in hyb.queue_stats.values())
@@ -550,15 +560,26 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["sync", "olaf-async", "scenario"])
     ap.add_argument("--sim-impl", default=None,
                     choices=["event", "window", "vectorized"],
-                    help="hybrid replay backend for --mode scenario: "
-                         "per-event or per-window ('vectorized' is not "
-                         "ported yet)")
+                    help="network simulator backend for --mode scenario: "
+                         "per-event replay, per-window batched replay, or "
+                         "the vectorized model (repro_torch.core.vecsim)")
     ap.add_argument("--topology", default="multihop",
                     choices=["multihop", "fattree", "multirack"])
     ap.add_argument("--fattree-k", type=int, default=2,
                     help="fat-tree arity for --topology fattree")
     ap.add_argument("--fattree-spines", type=int, default=1,
                     help="core switches for --topology fattree")
+    ap.add_argument("--sim-dt", default=None,
+                    help="uniform step for --sim-impl vectorized: a float "
+                         "or 'auto' (largest dt within the AoM tolerance, "
+                         "bisected against the exact grid on a prefix); "
+                         "skips the host oracle trace entirely")
+    ap.add_argument("--sim-shards", type=int, default=1,
+                    help="switch shards of the vectorized model (only 1: "
+                         "sharding is ROADMAP queue 1 item 5)")
+    ap.add_argument("--sim-worker-shards", type=int, default=1,
+                    help="worker shards of the vectorized model (only 1: "
+                         "sharding is ROADMAP queue 1 item 5)")
     ap.add_argument("--sim-dim", type=int, default=64,
                     help="payload row width for --mode scenario")
     ap.add_argument("--steps", type=int, default=50)
@@ -611,9 +632,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.sim_impl == "vectorized":
-        ap.error("--sim-impl vectorized is not ported yet: it comes with the "
-                 "vecsim slice (ROADMAP queue 1 item 4); use event or window")
+    if args.sim_shards > 1 or args.sim_worker_shards > 1:
+        ap.error("--sim-shards/--sim-worker-shards above 1 (the sharded "
+                 "vectorized simulator) are not ported yet: they come with "
+                 "ROADMAP queue 1 item 5")
+    if args.sim_dt is not None and args.sim_dt != "auto":
+        try:
+            float(args.sim_dt)
+        except ValueError:
+            ap.error(f"--sim-dt takes a float or 'auto', not {args.sim_dt!r}")
     if args.mode == "scenario":
         return run_scenario(args)
     if args.arch is None:

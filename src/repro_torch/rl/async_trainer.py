@@ -275,9 +275,12 @@ def run_hybrid_ppo(*, env: str = "cartpole",
 
     ``topology`` is a ``TopologySpec`` or a prebuilt ``SimCfg``; the
     default is the §8.3 SW1/SW2/SW3 fan-in of ``multihop_cfg(
-    **multihop_kw)``. ``sim_impl`` is ``"event"``, ``"window"`` or None
-    (keep ``batched``). ``device`` defaults to ``"cuda"`` and raises
-    without a card unless the caller passes ``"cpu"``.
+    **multihop_kw)``. ``sim_impl`` is ``"event"``, ``"window"``, None
+    (keep ``batched``) or ``"vectorized"`` (the whole scenario through
+    :func:`repro_torch.core.vecsim.run_vecsim` on ``device``, the
+    gradients' rewards on each worker's generation schedule). ``device``
+    defaults to ``"cuda"`` and raises without a card unless the caller
+    passes ``"cpu"``.
 
     Returns ``(HybridResult, ParameterServer, SimCfg)``.
     """

@@ -6,6 +6,8 @@ without JAX: ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 Without a card every test skips with its reason (a CUDA kernel has no CPU
 mode).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -571,3 +573,96 @@ def test_ps_step_makes_no_host_sync(cuda_device):
     assert olaf_step_cuda.launches == 3
     assert all(v.device.type == "cuda" and v.dim() == 0
                for v in stats.values())
+
+
+def _dyadic_fattree_cfg(route="static", faults=None):
+    """``tests/test_vecsim.py``'s dyadic fat-tree k=2, from the port's
+    topology (every event time exact in float32 and float64)."""
+    from repro_torch.core.topology import build_sim_cfg, fattree_spec
+    spec = fattree_spec(2, edge_gbps=2 ** 19 / 1e9, agg_gbps=2 ** 20 / 1e9,
+                        core_gbps=2 ** 21 / 1e9, prop_delay=2.0 ** -12,
+                        route_policy=route)
+    return build_sim_cfg(spec, gen_interval=3 * 2.0 ** -7, gen_jitter=0.0,
+                         size_bits=8192, horizon=0.25, seed=0, faults=faults)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["static", "hash", "adaptive"])
+def test_vecsim_on_the_card_equals_the_cpu(cuda_device, route):
+    """``run_vecsim`` on the card against the same run on the CPU, on a
+    small fat-tree with lossy links: every counter, delivery field and time
+    equal, payloads within 1e-6, the results on the card."""
+    from repro_torch.core import vecsim
+    from repro_torch.core.netsim import FaultSpec, LinkFault
+    cfg0 = _dyadic_fattree_cfg(route)
+    cfg = _dyadic_fattree_cfg(route, faults=FaultSpec(
+        links=[LinkFault(switch=s.name, drop_prob=0.05)
+               for s in cfg0.switches], seed=11))
+    grid, _ = vecsim.oracle_event_times(cfg)
+    rows = np.random.default_rng(1).normal(size=(512, 33)).astype(np.float32)
+    kw = dict(grid=grid, dim=33, payload_rows=rows)
+    card = vecsim.run_vecsim(cfg, device=cuda_device, **kw)
+    host = vecsim.run_vecsim(cfg, device="cpu", **kw)
+    assert card.delivered_payloads.device.type == "cuda"
+    assert len(card.delivery_times) > 0
+    for f in ("queue_stats", "sent", "deferred", "received_at_ps",
+              "link_dropped", "raw_link_dropped", "reroutes",
+              "drops_by_switch", "deliveries", "agg_counts",
+              "unrecovered_drops"):
+        assert getattr(card.sim, f) == getattr(host.sim, f), f
+    assert [dataclasses.astuple(u) for u in card.sim.delivered_updates] == \
+        [dataclasses.astuple(u) for u in host.sim.delivered_updates]
+    for f in ("aom", "n_steps", "forwarded", "residual", "h2d_transfers",
+              "width", "passes"):
+        assert getattr(card, f) == getattr(host, f), f
+    np.testing.assert_array_equal(card.delivery_times, host.delivery_times)
+    np.testing.assert_array_equal(card.final_counts, host.final_counts)
+    assert float((card.delivered_payloads.cpu()
+                  - host.delivered_payloads).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_vecsim_step_loop_makes_no_host_sync(cuda_device):
+    """Every boundary of a run with transmission control, lossy links and
+    the ``hash`` route, stepped under ``set_sync_debug_mode("error")``: the
+    step never waits for the card."""
+    from repro_torch.core import vecsim
+    from repro_torch.core.netsim import FaultSpec, LinkFault
+    from repro_torch.core.txctl import TxControlConfig
+    cfg0 = _dyadic_fattree_cfg("hash")
+    cfg = dataclasses.replace(
+        cfg0, tx_control=TxControlConfig(delta_threshold=0.5),
+        faults=FaultSpec(links=[LinkFault(switch=s.name, drop_prob=0.1)
+                                for s in cfg0.switches], seed=3))
+    comp = vecsim.compile_scenario(cfg, dim=8)
+    assert comp.static.has_tx and comp.static.route == "hash"
+    grid = vecsim.uniform_grid(cfg, 2.0 ** -9, allow_coarse=True)
+    arrs = vecsim._stage(comp.arrays, cuda_device)
+    runner = vecsim._Runner(comp.static, arrs, 8,
+                            float(comp.arrays["horizon"]))
+    carry = runner.init_carry()
+    ts = torch.from_numpy(grid).to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry = runner.run(carry, ts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(carry["sent"]) > 0 and int(carry["dlv"]["n"]) > 0
+    assert carry["dlv"]["pay"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_vectorized_hybrid_rows_live_on_the_card(cuda_device):
+    """``run_hybrid_multihop(sim_impl="vectorized")`` on the card: the
+    delivered rows are card tensors, equal to the CPU run's within 1e-6."""
+    kw = dict(dim=16, seed=3, horizon=0.1, sim_impl="vectorized")
+    card, _ = run_hybrid_multihop(device=cuda_device, **kw)
+    host, _ = run_hybrid_multihop(device="cpu", **kw)
+    assert len(card.delivered) == len(host.delivered) > 0
+    for (tc, uc, pc), (th, uh, ph) in zip(card.delivered, host.delivered):
+        assert pc.device.type == "cuda"
+        assert tc == th and dataclasses.astuple(uc) == dataclasses.astuple(uh)
+        assert float((pc.cpu() - ph).abs().max()) <= 1e-6
+    assert card.queue_stats == host.queue_stats
+    assert card.launches == host.launches > 1

@@ -339,8 +339,9 @@ def test_drain_only_departure_delivers_its_row_h10(sharded):
 
 
 def test_backend_selection_errors():
-    with pytest.raises(NotImplementedError, match="vecsim slice"):
-        t_hyb.run_hybrid_multihop(DIM, sim_impl="vectorized", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        t_hyb.run_hybrid_multihop(DIM, sim_impl="vectorized", sim_mesh=2,
+                                  device="cpu")
     with pytest.raises(ValueError, match="sim_dt/sim_mesh require"):
         t_hyb.run_hybrid_multihop(DIM, sim_impl="event", sim_dt=0.01,
                                   device="cpu")

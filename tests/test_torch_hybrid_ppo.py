@@ -53,6 +53,34 @@ def test_event_backend_gives_the_same_weights(window_run):
         assert torch.equal(p0, p1)
 
 
+def test_vectorized_backend_gives_the_window_weights(window_run):
+    """``sim_impl="vectorized"`` delivers the window replay's packets (the
+    same metadata, times within 2e-5 (float32 here), rows within
+    rtol=1e-5, atol=1e-6: the burst sums them in another order), so the PS
+    applies the same updates to within that tolerance."""
+    hyb_w, ps_w, _ = window_run
+    hyb_v, ps_v, _ = run_hybrid_ppo(device="cpu", sim_impl="vectorized", **KW)
+
+    def key(d):
+        t, u, _ = d
+        return (u.cluster_id, u.worker_id, u.gen_time, u.agg_count, t)
+
+    assert len(hyb_v.delivered) == len(hyb_w.delivered) > 0
+    for (tw, uw, pw), (tv, uv, pv) in zip(sorted(hyb_w.delivered, key=key),
+                                          sorted(hyb_v.delivered, key=key)):
+        assert abs(tw - tv) <= 2e-5 * max(1.0, tw)
+        # the vectorized model keeps times in float32 (hazard H4)
+        assert abs(uw.gen_time - uv.gen_time) <= 1e-6 * max(1.0, uw.gen_time)
+        assert (uw.cluster_id, uw.worker_id, uw.agg_count) == (
+            uv.cluster_id, uv.worker_id, uv.agg_count)
+        assert uv.reward == np.float32(uw.reward)
+        np.testing.assert_allclose(pv.numpy(), pw.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    assert hyb_v.queue_stats == hyb_w.queue_stats
+    assert (ps_v.applied, ps_v.rejected) == (ps_w.applied, ps_w.rejected)
+    np.testing.assert_allclose(ps_v.w, ps_w.w, rtol=1e-5, atol=1e-6)
+
+
 def test_without_a_card_the_default_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -86,12 +114,13 @@ def test_scenario_command_matches_repro(capsys):
      "moe family is not ported yet; it comes with ROADMAP queue 1 item 7a"),
     (["--arch", "mamba2-130m", "--reduced", "--mode", "olaf-async"],
      "ssm family is not ported yet; it comes with ROADMAP queue 1 item 7a"),
-    (["--sim-impl", "vectorized"], "vecsim slice")])
+    (["--mode", "scenario", "--sim-impl", "vectorized", "--sim-shards", "2"],
+     "ROADMAP queue 1 item 5")])
 def test_scenario_command_refuses_unported_modes(argv, match, capsys,
                                                  monkeypatch):
     """The LM modes refuse a family the port cannot build yet, and the
-    command refuses the vectorized simulator: exit 2 through the parser,
-    before any model is built."""
+    scenario command refuses the sharded vectorized simulator: exit 2
+    through the parser, before any model is built."""
     from repro_torch.models import api
 
     def no_model(*a, **kw):
