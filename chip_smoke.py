@@ -20,7 +20,13 @@ launch), and LM training of smollm-360m at full width (``launch.train
 --mode olaf-async``: every PS step is one ``olaf_step`` launch at D =
 361,821,120, the kernel held to its plain version at that shape; then
 ``--mode sync``; and a reduced run on the card held to the same run on the
-CPU). The attention kernels are held to their plain versions in both the
+CPU), and the other LM families (``[families]``: mamba2, recurrentgemma,
+grok-1, arctic, internvl2 and whisper served at their published widths,
+depth cut only where one card forces it, each one's first period held in
+float32 to the plain route and its reduced config to the CPU; mamba2
+trained olaf-async at full width; the reduced grok-1, mamba2 and
+recurrentgemma olaf-async runs on the card held to the CPU's). The
+attention kernels are held to their plain versions in both the
 folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one, and
 timed beside SDPA. It prints each kernel's ptxas registers and spills,
 counts each wrapper's device kernels per call in a profiler trace (one,
@@ -1037,6 +1043,7 @@ FLASH_SHAPES = {
     "b": (120, 2048, 2048, 64, True, 0, 0),
     "c": (16, 1000, 1000, 256, True, 128, 0),  # ragged, gemma's head dim
     "d": (64, 256, 768, 128, True, 0, 512),
+    "e": (48, 1500, 1500, 64, False, 0, 0),  # whisper's encoder, B=4
 }
 # the model's (B, S, H, Dh) layout, q/k/v strided views into fused (B, S,
 # 3, H, Dh) projections, read in place by the kernel:
@@ -1045,12 +1052,22 @@ FLASH_MODEL_SHAPES = {
     "a/model": (8, 512, 512, 15, 64, True, 0, 0),  # the smollm-360m prefill
     "c/model": (2, 1000, 1000, 8, 256, True, 128, 0),
     "d/model": (4, 256, 768, 16, 128, True, 0, 512),
+    "f/model": (4, 512, 512, 48, 128, True, 0, 0),  # grok-1's prefill
+    # recurrentgemma's prefill: 2,304 tokens past its 2,048 window
+    "g/model": (2, 2304, 2304, 16, 256, True, 2048, 0),
+    "h/model": (4, 512, 512, 56, 128, True, 0, 0),  # arctic's prefill
+    "i/model": (4, 768, 768, 64, 128, True, 0, 0),  # internvl2: 256 + 512
 }
+# model shapes whose k/v are expanded from fewer heads, as ``expand_kv``
+# gives them (contiguous (B, S, H, Dh) copies): name -> kv heads
+FLASH_MODEL_KV = {"f/model": 8, "g/model": 1, "h/model": 8, "i/model": 8}
 # name: (B, KV, rep, S, Dh, positions)
 DECODE_SHAPES = {
     "a": (8, 5, 3, 552, 64, "spread"),  # the serve cache, rows at 0..551
     "b": (8, 5, 3, 32768, 64, "end"),  # the decode_32k length
     "c": (4, 1, 8, 1000, 256, "random"),
+    "d": (4, 12, 1, 80, 64, "spread"),  # whisper's decoder, rep 1
+    "e": (4, 8, 6, 528, 128, "spread"),  # grok-1's decode, rep 6
 }
 PLAIN_SCORE_BYTES = 2**30  # the plain flash runs over BH in slices this big
 
@@ -1071,13 +1088,19 @@ def flash_inputs(gen, dev, shape, dtype):
                  for S in (Sq, Sk, Sk))
 
 
-def flash_model_inputs(gen, dev, shape, dtype):
+def flash_model_inputs(gen, dev, shape, dtype, kv_heads=None):
     """q from a fused (B, Sq, 3, H, Dh) projection, k and v from a fused
-    (B, Sk, 3, H, Dh) one: strided (B, S, H, Dh) views, not copies."""
+    (B, Sk, 3, H, Dh) one: strided (B, S, H, Dh) views, not copies; with
+    ``kv_heads``, k and v are (B, Sk, kv_heads, Dh) expanded to H heads
+    (head h reads kv head h // rep)."""
     B, Sq, Sk, H, Dh = shape[:5]
     xq, xkv = (torch.randn((B, S, 3, H, Dh), generator=gen, device=dev)
                .to(dtype) for S in (Sq, Sk))
-    return xq[:, :, 0], xkv[:, :, 1], xkv[:, :, 2]
+    if kv_heads is None:
+        return xq[:, :, 0], xkv[:, :, 1], xkv[:, :, 2]
+    heads = torch.arange(H, device=dev) // (H // kv_heads)
+    k, v = (xkv[:, :, i, :kv_heads].index_select(2, heads) for i in (1, 2))
+    return xq[:, :, 0], k, v
 
 
 def folded_shape(shape):
@@ -1207,7 +1230,8 @@ def check_attention(dev, gen):
     for name, mshape in FLASH_MODEL_SHAPES.items():
         shape = folded_shape(mshape)
         for dtype in ATTN_DTYPES:
-            q, k, v = flash_model_inputs(gen, dev, mshape, dtype)
+            q, k, v = flash_model_inputs(gen, dev, mshape, dtype,
+                                         FLASH_MODEL_KV.get(name))
             require(not q.is_contiguous(), f"flash {name}: q is not a view")
             got = flash_attention_cuda(q, k, v, **flash_kw(shape))
             want = flash_plain_sliced(q, k, v, **flash_kw(shape))
@@ -1219,7 +1243,8 @@ def check_attention(dev, gen):
             require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
                     f"flash {name} {dtype}: off by {err}")
             log(f"[check] flash_attention {name} {str(dtype)[6:]}: (B, S, H, "
-                f"Dh) views B={mshape[0]} Sq={mshape[1]} Sk={mshape[2]} "
+                f"Dh) views (k/v from {FLASH_MODEL_KV.get(name, mshape[3])} "
+                f"heads) B={mshape[0]} Sq={mshape[1]} Sk={mshape[2]} "
                 f"H={mshape[3]} Dh={mshape[4]} strides {tuple(q.stride())} "
                 f"causal={mshape[5]} window={mshape[6]} q_offset={mshape[7]} "
                 f"matches (max |err| {err:.3g}; "
@@ -1308,26 +1333,6 @@ def serve_run(cfg, params, dev):
                               params=params)
 
 
-def teacher_forced_logits(params, cfg, tokens, dev):
-    """Prefill logits, then the logits of every decode step fed ``tokens``
-    (the served run's picks) at the served positions."""
-    B, P, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
-    prompt = torch.as_tensor(np.random.default_rng(SERVE["seed"]).integers(
-        0, cfg.vocab, (B, P)), dtype=torch.int32, device=dev)
-    out = []
-    with torch.inference_mode():
-        logits, caches = lm.lm_prefill(params, prompt, cfg)
-        out.append(logits[:, -1])
-        caches = lm_module.tree_map(launch_serve._grow, lm_api.make_caches(
-            cfg, B, P + gen + 8, device=dev), caches)
-        for i in range(gen):
-            tok = torch.as_tensor(tokens[:, i], device=dev)
-            pos = torch.full((B,), P + i, dtype=torch.int32, device=dev)
-            logits, caches = lm.lm_decode_step(params, caches, tok, pos, cfg)
-            out.append(logits)
-    return torch.stack(out)  # (gen + 1, B, V)
-
-
 def serve_phase(dev) -> dict:
     """``launch.serve.serve`` at full width and depth under
     ``attn_impl="pallas"``, counted from 0; a profiled repeat for the idle
@@ -1386,9 +1391,11 @@ def serve_phase(dev) -> dict:
     # the kernel route against the plain route, float32, teacher-forced
     p32 = lm_module.cast_tree(params_s, torch.float32)
     got = teacher_forced_logits(p32, serve_cfg(dtype="float32",
-                                               attn_impl="pallas"), toks, dev)
+                                               attn_impl="pallas"), dev, B_s,
+                                P_s, toks)
     want = teacher_forced_logits(p32, serve_cfg(dtype="float32",
-                                                attn_impl="full"), toks, dev)
+                                                attn_impl="full"), dev, B_s,
+                                 P_s, toks)
     torch.cuda.synchronize()
     route_err = [float((g - w).abs().max()) for g, w in zip(got, want)]
     require(bool(torch.isfinite(got).all()), "serve f32: non-finite logits")
@@ -1669,6 +1676,294 @@ def train_phase(dev) -> dict:
                 ps_step_bound_ms=ps_bound, step_s=wall_1,
                 idle_share=idle, idle_share_profiled=idle_p,
                 peak_bytes=peak - held)
+
+
+# ---------------------------------------------------------------------------
+# the other families: moe, ssm, hybrid, vlm and encdec served at full width,
+# moe/ssm/hybrid trained
+# ---------------------------------------------------------------------------
+# arch: (layers on the card, B, P); full published widths from configs/,
+# depth cut only where one card forces it (grok 2 of 64, arctic 1 of 35,
+# internvl2 4 of 80)
+FAMILIES = {
+    "mamba2-130m": (24, 4, 512),
+    "recurrentgemma-9b": (38, 2, 2304),  # past the 2048 window: the ring wraps
+    "grok-1-314b": (2, 4, 512),
+    "arctic-480b": (1, 4, 512),
+    "internvl2-76b": (4, 4, 512),
+    "whisper-small": (12, 4, 64),
+}
+FAMILY_GEN = 16
+FAMILY_TOL = 1e-4  # reduced configs, float32: the card against the CPU
+# arctic's one layer is 54 GB in float32: its float32 check keeps this many
+# of its 128 experts (every width as published)
+ARCTIC_F32_EXPERTS = 16
+FAMILY_TRAIN_FULL = ["--arch", "mamba2-130m", "--mode", "olaf-async",
+                     "--workers", "4", "--batch", "32", "--seq", "256",
+                     "--burst-size", "2", "--drain-k", "4", "--steps", "3",
+                     "--log-every", "0"]
+FAMILY_TRAIN_REDUCED = ["--reduced", "--mode", "olaf-async", "--workers", "4",
+                        "--batch", "8", "--seq", "16", "--burst-size", "2",
+                        "--drain-k", "4", "--steps", "4", "--log-every", "0"]
+
+
+def family_cfg(arch, **kw):
+    depth = FAMILIES[arch][0]
+    return dataclasses.replace(get_config(arch), n_layers=depth, **kw)
+
+
+def expected_launches(cfg, gen):
+    """(flash, decode) launches of one served run under ``"pallas"``: one
+    flash per attention layer of the prefill (whisper: each encoder and
+    decoder layer), one decode per non-windowed attention layer and step
+    (the hybrid's windowed layers decode through the plain masked
+    attention)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + cfg.n_layers, cfg.n_layers * gen
+    n_attn = sum(k in ("attn", "moe") for k in lm.layer_plan(cfg))
+    return n_attn, 0 if cfg.window else n_attn * gen
+
+
+def first_period(params, cfg):
+    """The params of the model cut to its first period (one layer;
+    recurrentgemma one (rec, rec, attn) period; whisper one encoder and one
+    decoder layer; arctic's layer with its first ``ARCTIC_F32_EXPERTS``
+    experts), as views, and that model's config."""
+    if cfg.family == "encdec":
+        keep = {k: v for k, v in params.items() if "layers" not in k}
+        keep["enc_layers"] = lm_module.tree_map(lambda x: x[:1],
+                                                params["enc_layers"])
+        keep["dec_layers"] = lm_module.tree_map(lambda x: x[:1],
+                                                params["dec_layers"])
+        return keep, dataclasses.replace(cfg, n_layers=1, n_enc_layers=1)
+    keep = {k: v for k, v in params.items() if k not in ("layers", "tail")}
+    keep["layers"] = lm_module.tree_map(lambda x: x[:1], params["layers"])
+    cfg = dataclasses.replace(cfg, n_layers=len(lm.split_plan(cfg)[0]))
+    if cfg.name == "arctic-480b":
+        E = min(ARCTIC_F32_EXPERTS, cfg.n_experts)
+        moe = keep["layers"]["sub_0"]["moe"]  # a fresh dict of tree_map's
+        moe["router"] = moe["router"][..., :E]
+        for w in ("wg", "wu", "wd"):
+            moe[w] = moe[w][:, :E]
+        cfg = dataclasses.replace(cfg, n_experts=E)
+    return keep, cfg
+
+
+def teacher_forced_logits(params, cfg, dev, B, P, tokens):
+    """Prefill logits, then the logits of every decode step fed ``tokens``
+    (the picks of a run served with seed 0, whose prompts these are) at the
+    served positions: (gen + 1, B, V)."""
+    gen = tokens.shape[1] - 1
+    offset = launch_serve.position_offset(cfg)
+    inputs = launch_serve.prompt_inputs(cfg, B, P, 0, dev)
+    out = []
+    with torch.inference_mode():
+        logits, caches = lm_api.prefill(params, inputs, cfg)
+        out.append(logits[:, -1])
+        caches = lm_module.tree_map(launch_serve._grow, lm_api.make_caches(
+            cfg, B, offset + P + gen + 8, device=dev), caches)
+        for i in range(gen):
+            tok = torch.as_tensor(tokens[:, i], device=dev)
+            pos = torch.full((B,), offset + P + i, dtype=torch.int32,
+                             device=dev)
+            logits, caches = lm_api.decode_step(
+                params, caches, {"token": tok, "pos": pos}, cfg)
+            out.append(logits)
+    return torch.stack(out)
+
+
+def profiled_family(params, cfg, dev, B, P, n_decode=4):
+    """Under the profiler: the prefill alone, then ``n_decode`` decode
+    steps from its caches. Returns (prefill, decode) dicts of device busy
+    s, wall s and device events."""
+    offset = launch_serve.position_offset(cfg)
+    inputs = launch_serve.prompt_inputs(cfg, B, P, 0, dev)
+    out = {}
+    with torch.inference_mode():
+        for part in ("prefill", "decode"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                if part == "prefill":
+                    logits, caches = lm_api.prefill(params, inputs, cfg)
+                else:
+                    for i in range(n_decode):
+                        pos = torch.full((B,), offset + P + i,
+                                         dtype=torch.int32, device=dev)
+                        logits, caches = lm_api.decode_step(
+                            params, caches, {"token": token, "pos": pos}, cfg)
+                        token = torch.argmax(logits[:, :cfg.vocab], -1).to(
+                            torch.int32)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k = device_kernels(prof)
+            out[part] = dict(busy_s=sum(us for _, us in k.values()) / 1e6,
+                             wall_s=wall,
+                             events=sum(n for n, _ in k.values()))
+            if part == "prefill":
+                caches = lm_module.tree_map(
+                    launch_serve._grow, lm_api.make_caches(
+                        cfg, B, offset + P + n_decode + 8, device=dev), caches)
+                token = torch.argmax(logits[:, -1, :cfg.vocab], -1).to(
+                    torch.int32)
+    out["decode"]["events_per_step"] = out["decode"]["events"] / n_decode
+    out["decode"]["steps"] = n_decode
+    return out
+
+
+def reduced_card_vs_cpu(arch, dev):
+    """The reduced config (float32, its own ``attn_impl``: the kernels take
+    no head dim of 16), its weights drawn on the CPU: served on the card,
+    then teacher-forced on the card and on the CPU with the served tokens.
+    Returns the logits' max |err|."""
+    cfg = get_config(arch).reduced()
+    host = lm_api.init_model(torch.Generator().manual_seed(0), cfg)
+    card = lm_module.tree_map(lambda x: x.to(dev), host)
+    B, P = 2, 20
+    toks = launch_serve.serve(cfg, batch=B, prompt_len=P, gen=4,
+                              temperature=0.0, device=dev, params=card).tokens
+    got = teacher_forced_logits(card, cfg, dev, B, P, toks)
+    want = teacher_forced_logits(host, cfg, torch.device("cpu"), B, P, toks)
+    err = float((got.cpu() - want).abs().max())
+    require(torch.allclose(got.cpu(), want, rtol=FAMILY_TOL, atol=FAMILY_TOL),
+            f"families {arch} reduced: card off the CPU by {err}")
+    return err
+
+
+def families_phase(dev, smi) -> dict:
+    """Each arch served at full width through ``launch.serve.serve`` under
+    ``attn_impl="pallas"`` (bf16, seeded random weights, greedy), counted
+    from 0, one arch at a time with its weights freed before the next; the
+    prefill and a few decode steps profiled; its first period's float32
+    kernel route against the plain route, teacher-forced on the served
+    tokens; the reduced config on the card against the CPU. Then training:
+    full-width mamba2 olaf-async, and the reduced olaf-async runs of grok-1,
+    mamba2 and recurrentgemma on the card against the CPU. Returns the
+    launch counts per path and the numbers per arch."""
+    t_phase = time.perf_counter()
+    counts, rows = {}, {}
+    for arch, (depth, B, P) in FAMILIES.items():
+        t_arch = time.perf_counter()
+        cfg = family_cfg(arch, attn_impl="pallas")
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = lm_api.init_model(torch.Generator(dev).manual_seed(0), cfg)
+        n_params = lm_module.count_params(params)
+        launch_serve.serve(cfg, batch=B, prompt_len=P, gen=2, temperature=0.0,
+                           device=dev, params=params)  # warm-up
+        reset_counts()
+        served = launch_serve.serve(cfg, batch=B, prompt_len=P,
+                                    gen=FAMILY_GEN, temperature=0.0,
+                                    device=dev, params=params)
+        c = counts[arch] = read_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        toks = served.tokens
+        want_fl, want_dec = expected_launches(cfg, FAMILY_GEN)
+        require((c["flash_attention"], c["decode_attention"])
+                == (want_fl, want_dec),
+                f"families {arch}: flash {c['flash_attention']}, decode "
+                f"{c['decode_attention']} launches; {want_fl}, {want_dec} "
+                f"expected")
+        require(toks.shape == (B, FAMILY_GEN + 1) and toks.min() >= 0
+                and toks.max() < cfg.vocab, f"families {arch}: tokens")
+        prof = profiled_family(params, cfg, dev, B, P)
+        pre, dec = prof["prefill"], prof["decode"]
+        # the first period in float32: the kernel route against the plain
+        # route, teacher-forced on the served tokens
+        sliced, cfg32 = first_period(params, cfg)
+        p32 = lm_module.cast_tree(sliced, torch.float32)
+        del params, sliced
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg32, dtype="float32")
+        got = teacher_forced_logits(p32, cfg32, dev, B, P, toks)
+        want = teacher_forced_logits(p32, dataclasses.replace(cfg32, attn_impl="full"),
+                             dev, B, P, toks)
+        route_err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()), f"families {arch}: f32 logits")
+        require(torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL),
+                f"families {arch} f32: kernel route off the plain route by "
+                f"{route_err}")
+        del p32, got, want
+        torch.cuda.empty_cache()
+        host_err = reduced_card_vs_cpu(arch, dev)
+        # idle shares against the served (unprofiled) walls: the profiler
+        # slows the host, and its first trace pays its own start-up
+        idle_pre = 100 * (1 - pre["busy_s"] / served.prefill_s)
+        idle_dec = 100 * (1 - dec["busy_s"] / dec["steps"]
+                          / (served.decode_s / FAMILY_GEN))
+        rows[arch] = dict(
+            layers=cfg.n_layers, params=n_params, B=B, P=P, gen=FAMILY_GEN,
+            prefill_ms=served.prefill_s * 1e3,
+            decode_ms_per_token=served.decode_s / FAMILY_GEN * 1e3,
+            decode_events_per_step=dec["events_per_step"],
+            prefill_events=pre["events"], prefill_idle_share=idle_pre,
+            decode_idle_share=idle_dec, peak_bytes=peak,
+            flash=c["flash_attention"], decode=c["decode_attention"],
+            f32_route_err=route_err, reduced_card_vs_cpu_err=host_err,
+            wall_s=time.perf_counter() - t_arch)
+        log(f"[families] {arch} ({cfg.family}) {cfg.n_layers} layers"
+            + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+            + f" d_model={cfg.d_model} vocab={cfg.vocab} {cfg.dtype} "
+            f"({n_params} parameters, seeded random), attn_impl=pallas, "
+            f"B={B} P={P} gen={FAMILY_GEN} greedy | {smi}: prefill "
+            f"{served.prefill_s * 1e3:.3f} ms, decode "
+            f"{served.decode_s / FAMILY_GEN * 1e3:.4f} ms/token; launches "
+            f"flash {c['flash_attention']} decode {c['decode_attention']} "
+            f"(expected {want_fl}, {want_dec}); profiled prefill {pre['events']} "
+            f"device events, busy {pre['busy_s'] * 1e3:.3f} ms (its own wall "
+            f"{pre['wall_s'] * 1e3:.3f} ms): idle {idle_pre:.2f}% of the served "
+            f"prefill; profiled decode {dec['events_per_step']:.1f} device "
+            f"events and {dec['busy_s'] / dec['steps'] * 1e3:.3f} ms busy per "
+            f"step (its own wall {dec['wall_s'] / dec['steps'] * 1e3:.3f} ms): "
+            f"idle {idle_dec:.2f}% of the served step; peak memory {peak / 2**30:.2f} GiB above "
+            f"the {held / 2**30:.2f} GiB held; float32 "
+            f"first period{f' ({ARCTIC_F32_EXPERTS} of 128 experts)' if arch == 'arctic-480b' else ''} "
+            f"kernel route vs plain max |err| {route_err:.3g} (tolerance "
+            f"{SERVE_TOL}); reduced config card vs CPU max |err| "
+            f"{host_err:.3g} (tolerance {FAMILY_TOL}); tokens[0][:8] "
+            f"{toks[0][:8].tolist()}; {rows[arch]['wall_s']:.1f} s")
+    # training: full-width mamba2 olaf-async, one olaf_step launch per step
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = launch_train.main(FAMILY_TRAIN_FULL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts["train mamba2-130m"] = read_counts()
+    losses = [l for _, l, _ in tr.log_rows]
+    width = lm_module.count_params(tr.state.params)
+    require(tr.dim == width and c["olaf_step"] == tr.args.steps == len(losses)
+            and all(math.isfinite(l) for l in losses),
+            f"families train mamba2: D {tr.dim}, launches {c['olaf_step']}, "
+            f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated() - held
+    log(f"[families] train mamba2-130m olaf-async full width | {smi}: D="
+        f"{tr.dim}, {tr.args.steps} PS steps in {wall:.3f} s, olaf_step "
+        f"launches {c['olaf_step']}, losses {[round(l, 6) for l in losses]}, "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    rows["train mamba2-130m"] = dict(D=tr.dim, wall_s=wall, losses=losses,
+                                     peak_bytes=peak)
+    del tr
+    torch.cuda.empty_cache()
+    for arch in ("grok-1-314b", "mamba2-130m", "recurrentgemma-9b"):
+        argv = ["--arch", arch] + FAMILY_TRAIN_REDUCED
+        card = launch_train.main(argv)
+        host = launch_train.main(argv + ["--device", "cpu"])
+        l_card = np.array([l for _, l, _ in card.log_rows])
+        l_host = np.array([l for _, l, _ in host.log_rows])
+        require([n for *_, n in card.log_rows] == [n for *_, n in host.log_rows]
+                and np.allclose(l_card, l_host, rtol=FAMILY_TOL, atol=0),
+                f"families train {arch} reduced: {l_card} vs {l_host}")
+        log(f"[families] train {arch} reduced olaf-async: card equals CPU "
+            f"(losses max rel diff "
+            f"{float(np.max(np.abs(l_card - l_host) / np.abs(l_host))):.3g}, "
+            f"rtol {FAMILY_TOL}; combined counts equal)")
+    log(f"[families] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, rows=rows)
 
 
 def demangle(names):
@@ -2074,6 +2369,9 @@ def main() -> int:
     train = train_phase(dev)
     max_err = max(max_err, train["max_abs_err"])
 
+    # ---- 4g. the other families: moe, ssm, hybrid, vlm, encdec -----------
+    families = families_phase(dev, smi)
+
     # ---- 5. timing ---------------------------------------------------------
     # the timer's floor: one kernel that adds 1 to one element, timed as
     # every kernel below is (the small OLAF shapes sit a few µs above it)
@@ -2125,7 +2423,9 @@ def main() -> int:
     paths = dict(trainer=trainer_counts, hybrid_ppo=hybrid_counts,
                  scenario=scenario_counts, vecsim=vecsim_counts,
                  enqueue=enqueue_counts,
-                 serve=serve_counts, train=train["counts"])
+                 serve=serve_counts, train=train["counts"],
+                 **{f"serve {a}" if not a.startswith("train") else a: c
+                    for a, c in families["counts"].items()})
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -2239,6 +2539,7 @@ def main() -> int:
         "decode", "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:68",
         "B=8 KV=5 rep=3 S=552 Dh=64 bf16, pos 0..551 (the serve cache)")
+    log("[families] " + json.dumps(families["rows"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry,
                                   flash_entry, decode_entry]}), flush=True)

@@ -2,16 +2,19 @@
 
 The counterpart of ``repro.launch.serve``, with the same flags plus
 ``--device`` (default ``cuda``; raises without a card) and ``--attn-impl``
-(default: the config's own ``attn_impl``). Under ``--attn-impl pallas``
-prefill attention runs the flash kernel and decode the decode kernel
+(default: the config's own ``attn_impl``). Every family is served: vlm
+prompts carry stub patch embeddings (their positions come first, so decode
+starts at ``n_patches + P``), encdec prompts stub encoder frames. Under
+``--attn-impl pallas`` prefill attention runs the flash kernel and the
+decode of a non-windowed attention layer the decode kernel
 (:mod:`repro_torch.kernels.ops`). On the CPU use ``--reduced``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --reduced --device cpu --temperature 0 --attn-impl pallas
 
 The weights are random, drawn from a ``torch.Generator`` seeded with
-``--seed``; the prompt tokens come from ``np.random.default_rng(seed)``, as
-``repro``'s. Sampling at a temperature above 0 uses ``torch.multinomial``,
+``--seed``; the prompt tokens, then the patches or frames, come from
+``np.random.default_rng(seed)``, as ``repro``'s. Sampling at a temperature above 0 uses ``torch.multinomial``,
 not ``jax.random``'s stream (ROADMAP hazard H3).
 """
 from __future__ import annotations
@@ -48,7 +51,8 @@ class ServeResult:
 
 def _grow(full: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``c`` copied into the prefix of ``full`` along the one axis where
-    their shapes differ (``repro``'s ``copy_prefix``)."""
+    their shapes differ (``repro``'s ``copy_prefix``); a cache of the same
+    shape (encdec's cross K/V, recurrent states, ring buffers) is ``c``."""
     if full.shape == c.shape:
         return c
     axis = [i for i, (a, b) in enumerate(zip(full.shape, c.shape)) if a != b][0]
@@ -65,6 +69,31 @@ def _pick(logits: torch.Tensor, vocab: int, temperature: float,
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def prompt_inputs(cfg: ArchConfig, batch: int, prompt_len: int, seed: int,
+                  device) -> Dict[str, torch.Tensor]:
+    """The prefill batch of :func:`serve`: ``batch`` random prompts of
+    ``prompt_len`` tokens, then the vlm patches or encdec frames, all from
+    ``np.random.default_rng(seed)`` in ``repro``'s order."""
+    rng = np.random.default_rng(seed)
+    inputs = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (batch, prompt_len)), dtype=torch.int32,
+        device=device)}
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.n_patches, cfg.d_model)),
+            dtype=torch.float32, device=device)
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.enc_frames, cfg.d_model)),
+            dtype=torch.float32, device=device)
+    return inputs
+
+
+def position_offset(cfg: ArchConfig) -> int:
+    """Where a prompt's text starts: after the vlm's patch prefix."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
 def serve(cfg: ArchConfig, *, batch: int, prompt_len: int, gen: int,
           temperature: float = 1.0, seed: int = 0, device="cuda",
           params: Optional[Dict] = None) -> ServeResult:
@@ -76,17 +105,16 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int, gen: int,
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     if params is None:
         params = api.init_model(torch.Generator(dev).manual_seed(seed), cfg)
-    rng = np.random.default_rng(seed)
     B, P = batch, prompt_len
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
-                             dtype=torch.int32, device=dev)
-    total = P + gen + 8
+    inputs = prompt_inputs(cfg, B, P, seed, dev)
+    offset = position_offset(cfg)
+    total = offset + P + gen + 8
     sample_gen = torch.Generator(dev).manual_seed(seed)
 
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        logits, caches = api.prefill(params, {"tokens": tokens}, cfg)
+        logits, caches = api.prefill(params, inputs, cfg)
         sync()
         t_prefill = time.perf_counter() - t0
 
@@ -96,7 +124,8 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int, gen: int,
         out = [token]
         t0 = time.perf_counter()
         for i in range(gen):
-            pos = torch.full((B,), P + i, dtype=torch.int32, device=dev)
+            pos = torch.full((B,), offset + P + i, dtype=torch.int32,
+                             device=dev)
             logits_t, caches = api.decode_step(
                 params, caches, {"token": token, "pos": pos}, cfg)
             token = _pick(logits_t, cfg.vocab, temperature, sample_gen)

@@ -11,8 +11,9 @@ The counterpart of ``repro.launch.train``, with its flags plus ``--device``
   * ``scenario`` — a network topology scenario replayed through the hybrid
     multi-switch data plane (:func:`run_scenario`).
 
-The LM modes take the dense family (other families come with ROADMAP queue
-1 item 7a). The scenario mode takes ``--sim-impl vectorized`` (and
+The LM modes train the dense, moe, ssm and hybrid families; vlm and encdec
+exit as ``repro``'s do (their stub frontends have family-specific
+drivers). The scenario mode takes ``--sim-impl vectorized`` (and
 ``--sim-dt``) on one device; ``--sim-shards``/``--sim-worker-shards``
 above 1 come with item 5. There is no
 ``--step-impl``: the tensors' device picks the ``olaf_step`` route
@@ -61,7 +62,6 @@ from repro_torch.models.module import (flat_size, flatten_like, tree_leaves,
 from repro_torch.optim.optimizers import (OptConfig, OptState, apply_updates,
                                           init_opt_state)
 
-_LATER_FAMILIES = "ROADMAP queue 1 item 7a"
 #: The sliding window (virtual time) of netsim's active clusters: N in the
 #: ACK's feedback counts the clusters that sent within it.
 ACTIVE_WINDOW = 1.0
@@ -553,7 +553,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default=None,
                     help="model config name (required outside --mode "
-                         "scenario; the dense family)")
+                         "scenario; a dense, moe, ssm or hybrid arch)")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU-runnable)")
     ap.add_argument("--mode", default="sync",
@@ -648,10 +648,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family != "dense":
-        ap.error(f"--arch {args.arch}: the {cfg.family} family is not "
-                 f"ported yet; it comes with {_LATER_FAMILIES} (the LM "
-                 f"modes train the dense family)")
+    if cfg.family in ("vlm", "encdec"):
+        raise SystemExit("use the family-specific example drivers for "
+                         "stub-frontend archs")
     if args.mode == "sync":
         return run_sync(cfg, args)
     return run_olaf_async(cfg, args)

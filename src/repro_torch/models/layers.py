@@ -264,6 +264,26 @@ def attention_any(q, k, v, *, causal: bool, window: int = 0,
 
 
 # --------------------------------------------------------------------------
+# The recurrent blocks' pieces (``repro``'s ssm and rglru modules each keep
+# their own copy)
+# --------------------------------------------------------------------------
+def causal_conv(x, w, b):
+    """Depthwise causal conv over time plus bias: x (B,S,C), w (K,C), summed
+    tap by tap from the oldest, as ``repro``."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = 0
+    for i in range(K):
+        out = out + pad[:, i:i + S, :] * w[i]
+    return out + b
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+# --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str, dtype):

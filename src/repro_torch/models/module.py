@@ -58,6 +58,24 @@ def tree_map(fn: Callable, *trees):
     return fn(*trees)
 
 
+def stack_draws(n: int, make: Callable[[], Params]) -> Params:
+    """``n >= 1`` trees drawn by ``make()`` in turn, stacked on a new
+    leading axis: each is copied into its slot as soon as it is drawn and
+    then dropped, so the draws cost one tree above the stack (stacking a
+    list of them would hold every tree twice); one tree is its own stack,
+    seen through a leading axis of 1."""
+    if n == 1:
+        return tree_map(lambda x: x[None], make())
+    out = None
+    for i in range(n):
+        tree = make()
+        if out is None:
+            out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), tree)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+        del tree
+    return out
+
+
 def run_periods(body: Callable, carry, stacked_params: Params):
     """Loop ``body(carry, period_params) -> (carry, out)`` over the leading
     axis of ``stacked_params`` (a dict, or a tuple of dicts sliced

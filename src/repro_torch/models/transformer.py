@@ -1,32 +1,38 @@
-"""Decoder-only LM of the dense family: the counterpart of
-``repro.models.transformer`` for the ``attn`` layer kind.
+"""Decoder-only LM of the dense, moe, ssm, hybrid and vlm families: the
+counterpart of ``repro.models.transformer``.
 
-Layers are grouped into repeating periods (dense: period 1, ``["attn"]``)
-whose params are stacked on a leading axis, key for key as ``repro``
-(``params["layers"]["sub_0"]``); the port loops over the periods in Python.
-Four entry points:
+Layers are grouped into repeating periods (dense: period 1, ``["attn"]``;
+recurrentgemma: period 3, ``["rec", "rec", "attn"]``) whose params are
+stacked on a leading axis, key for key as ``repro``
+(``params["layers"]["sub_0"]``); the port loops over the periods in Python,
+and the layers left over (38 = 12·3 + 2) follow as ``params["tail"]``.
+Layer kinds: ``attn`` (attention + MLP), ``moe`` (attention + the
+mixture-of-experts FFN, :mod:`~repro_torch.models.moe`), ``rec`` (the
+RG-LRU block + MLP, :mod:`~repro_torch.models.rglru`) and ``ssm`` (the
+Mamba-2 block, :mod:`~repro_torch.models.ssm`). The vlm family prepends
+projected stub patch embeddings to the text and returns logits over the
+text positions only. Four entry points:
 
   * :func:`lm_forward`     — full-sequence logits;
   * :func:`lm_loss`        — next-token cross entropy, differentiable by
     autograd through the ``auto``/``full``/``chunked`` attention routes
     (the flash kernel has no backward: ``"pallas"`` under a gradient
     raises);
-  * :func:`lm_prefill`     — forward + KV caches (inference prefill);
+  * :func:`lm_prefill`     — forward + caches (inference prefill);
   * :func:`lm_decode_step` — one token against the caches, which it
-    updates in place (``index_put_``; ``repro`` returns new caches and its
-    jit donates the old ones): treat the passed-in caches as consumed.
+    updates in place (``index_put_`` and ``copy_``; ``repro`` returns new
+    caches and its jit donates the old ones): treat the passed-in caches
+    as consumed.
 
 ``attn_impl="pallas"`` routes prefill attention to the flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention`), as ``repro`` does, and
-the decode of a non-windowed layer to the decode kernel
+the decode of a non-windowed attn or moe layer to the decode kernel
 (:func:`repro_torch.kernels.ops.decode_attention`) with q folded to
 (B, KV, rep, Dh) against the unexpanded cache. ``repro`` decodes through
 the plain ``layers.decode_attention`` under every ``attn_impl``; the two
-compute the same function (ROADMAP queue 3, the decode route).
-
-The moe, rec and ssm layer kinds and the moe, ssm, hybrid, encdec and vlm
-families raise ``NotImplementedError``: they come with ROADMAP queue 1
-item 7a.
+compute the same function (ROADMAP queue 3, the decode route). The
+hybrid's windowed layers decode through the plain masked attention, as in
+``repro``.
 """
 from __future__ import annotations
 
@@ -39,25 +45,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
-from repro_torch.models.module import dtype_of, run_periods, tree_map
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
+from repro_torch.models.module import (dense_init, dtype_of, run_periods,
+                                       stack_draws, tree_map)
 from repro_torch.optim.optimizers import OptState
 
 Params = Dict[str, Any]
-
-_LATER = "ROADMAP queue 1 item 7a"
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; it "
-            f"comes with {_LATER} (the port serves the dense family)")
-
-
-def _check_kind(kind: str) -> None:
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet; "
-                                  f"it comes with {_LATER}")
 
 
 # --------------------------------------------------------------------------
@@ -93,18 +88,31 @@ def _attn_window(cfg: ArchConfig, kind: str) -> int:
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Params:
-    _check_kind(kind)
     dt, d, dev = dtype_of(cfg.dtype), cfg.d_model, gen.device
-    return {"ln1": L.init_norm(cfg.norm, d, dt, dev),
-            "attn": L.init_attention(gen, cfg, dt),
-            "ln2": L.init_norm(cfg.norm, d, dt, dev),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.act, dt)}
+    if kind in ("attn", "moe"):
+        p = {"ln1": L.init_norm(cfg.norm, d, dt, dev),
+             "attn": L.init_attention(gen, cfg, dt),
+             "ln2": L.init_norm(cfg.norm, d, dt, dev)}
+        if kind == "moe":
+            p["moe"] = MOE.init_moe(gen, d, cfg.d_ff, cfg.n_experts, cfg.act,
+                                    dt, cfg.dense_residual)
+        else:
+            p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.act, dt)
+        return p
+    if kind == "rec":
+        return {"ln1": L.init_norm(cfg.norm, d, dt, dev),
+                "rec": RG.init_rglru_block(gen, cfg, dt),
+                "ln2": L.init_norm(cfg.norm, d, dt, dev),
+                "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.act, dt)}
+    if kind == "ssm":
+        return {"ln1": L.init_norm(cfg.norm, d, dt, dev),
+                "ssm": SSM.init_ssm_block(gen, cfg, dt)}
+    raise ValueError(kind)
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random weights at ``cfg``'s shapes, drawn from ``gen`` on its device
     (``repro``'s vocabulary padding for sharding is left out: one device)."""
-    _check_family(cfg)
     dt = dtype_of(cfg.dtype)
     period_plan, n_full, tail = split_plan(cfg)
     params: Params = {
@@ -112,12 +120,14 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
                                       cfg.tie_embeddings),
         "final_norm": L.init_norm(cfg.norm, cfg.d_model, dt, gen.device),
     }
-    periods = [{f"sub_{i}": init_layer(gen, cfg, kind)
-                for i, kind in enumerate(period_plan)} for _ in range(n_full)]
-    params["layers"] = tree_map(lambda *xs: torch.stack(xs), *periods)
+    params["layers"] = stack_draws(n_full, lambda: {
+        f"sub_{i}": init_layer(gen, cfg, kind)
+        for i, kind in enumerate(period_plan)})
     if tail:
         params["tail"] = {f"layer_{i}": init_layer(gen, cfg, kind)
                           for i, kind in enumerate(tail)}
+    if cfg.family == "vlm":
+        params["patch_proj"] = dense_init(gen, cfg.d_model, (cfg.d_model,), dt)
     return params
 
 
@@ -171,24 +181,39 @@ def _attn_block(p, x, cfg: ArchConfig, kind: str, positions):
     return x + L.out_proj(p["attn"], ctx), k, v
 
 
-def _mlp_block(p, x, cfg: ArchConfig):
-    return x + L.apply_mlp(p["mlp"], L.apply_norm(cfg.norm, p["ln2"], x),
-                           cfg.act)
+def _ffn_block(p, x, cfg: ArchConfig):
+    """The second half of an attn, moe or rec layer: the pre-norm MLP, or
+    the mixture of experts."""
+    h = L.apply_norm(cfg.norm, p["ln2"], x)
+    if "moe" in p:
+        return x + MOE.apply_moe(p["moe"], h, cfg)
+    return x + L.apply_mlp(p["mlp"], h, cfg.act)
 
 
 def apply_layer_train(p, x, cfg: ArchConfig, kind: str, positions):
-    """Forward of one layer over the whole sequence (no backward here)."""
-    _check_kind(kind)
-    x, _, _ = _attn_block(p, x, cfg, kind, positions)
-    return _mlp_block(p, x, cfg)
+    """Forward of one layer over the whole sequence."""
+    if kind in ("attn", "moe"):
+        x, _, _ = _attn_block(p, x, cfg, kind, positions)
+        return _ffn_block(p, x, cfg)
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    if kind == "rec":
+        return _ffn_block(p, x + RG.apply_rglru_train(p["rec"], h, cfg), cfg)
+    if kind == "ssm":
+        return x + SSM.apply_ssm_train(p["ssm"], h, cfg)
+    raise ValueError(kind)
 
 
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                      *, device):
-    _check_kind(kind)
+    dt = dtype_of(cfg.dtype)
+    if kind == "rec":
+        return RG.init_rglru_cache(cfg, batch, dt, device=device)
+    if kind == "ssm":
+        return SSM.init_ssm_cache(cfg, batch, dt, device=device)
+    if kind not in ("attn", "moe"):
+        raise ValueError(kind)
     S = cfg.window if _attn_window(cfg, kind) else cache_len
     shape = (batch, S, cfg.n_kv_heads, cfg.hd)
-    dt = dtype_of(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -210,9 +235,16 @@ def init_caches(cfg: ArchConfig, batch: int, cache_len: int, *,
 
 def apply_layer_prefill(p, x, cfg: ArchConfig, kind: str, positions):
     """Full-sequence forward that also returns the decode cache."""
-    _check_kind(kind)
+    if kind == "rec":
+        y, cache = RG.rglru_prefill(
+            p["rec"], L.apply_norm(cfg.norm, p["ln1"], x), cfg)
+        return _ffn_block(p, x + y, cfg), cache
+    if kind == "ssm":
+        y, cache = SSM.ssm_prefill(
+            p["ssm"], L.apply_norm(cfg.norm, p["ln1"], x), cfg)
+        return x + y, cache
     x, k, v = _attn_block(p, x, cfg, kind, positions)
-    x = _mlp_block(p, x, cfg)
+    x = _ffn_block(p, x, cfg)
     window = _attn_window(cfg, kind)
     if not window:
         return x, {"k": k, "v": v}
@@ -254,10 +286,15 @@ def _masked_decode_attn(q, k_cache, v_cache, valid):
 
 def apply_layer_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
     """x: (B,1,d); pos: (B,) int32, the absolute position of the incoming
-    token. Writes the token's k/v into ``cache`` in place; returns
-    ``(x, cache)``."""
-    _check_kind(kind)
+    token. Writes the token's k/v (or the new recurrent state) into
+    ``cache`` in place; returns ``(x, cache)``."""
     h = L.apply_norm(cfg.norm, p["ln1"], x)
+    if kind in ("rec", "ssm"):
+        step = RG.apply_rglru_decode if kind == "rec" else SSM.apply_ssm_decode
+        y, new = step(p[kind], h, cache, cfg)
+        for name, t in new.items():
+            cache[name].copy_(t)
+        return (_ffn_block(p, x + y, cfg) if kind == "rec" else x + y), cache
     q, k, v = L.qkv(p["attn"], h)
     q, k = _rope(cfg, q, pos[:, None]), _rope(cfg, k, pos[:, None])
     window = _attn_window(cfg, kind)
@@ -277,7 +314,7 @@ def apply_layer_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
         ctx = L.decode_attention(q, L.expand_kv(kc, cfg),
                                  L.expand_kv(vc, cfg), pos)
     x = x + L.out_proj(p["attn"], ctx)
-    return _mlp_block(p, x, cfg), cache
+    return _ffn_block(p, x, cfg), cache
 
 
 # --------------------------------------------------------------------------
@@ -287,11 +324,27 @@ def _embed(params, cfg: ArchConfig, tokens):
     return L.embed(params["embedding"], tokens, scale_by_dim=cfg.embed_scale)
 
 
-def lm_forward(params, tokens, cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
-    _check_family(cfg)
-    period_plan, _, tail_plan = split_plan(cfg)
+def _embed_inputs(params, cfg: ArchConfig, tokens, patches=None):
+    """Token embeddings, behind the projected patch embeddings for vlm."""
     x = _embed(params, cfg, tokens)
+    if cfg.family != "vlm":
+        return x
+    if patches is None:
+        raise ValueError(f"{cfg.name}: the vlm family needs stub patch "
+                         f"embeddings (batch['patches'])")
+    img = torch.einsum("bpd,de->bpe", patches.to(x.dtype), params["patch_proj"])
+    return torch.cat([img, x], dim=1)
+
+
+def _text(cfg: ArchConfig, x, tokens):
+    """The text positions of the residual (vlm drops its patch prefix)."""
+    return x[:, -tokens.shape[1]:, :] if cfg.family == "vlm" else x
+
+
+def lm_forward(params, tokens, cfg: ArchConfig, patches=None) -> torch.Tensor:
+    """Full-sequence forward -> logits over the text positions (B, S, V)."""
+    period_plan, _, tail_plan = split_plan(cfg)
+    x = _embed_inputs(params, cfg, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def period_body(h, pp):
@@ -303,22 +356,23 @@ def lm_forward(params, tokens, cfg: ArchConfig) -> torch.Tensor:
     for i, kind in enumerate(tail_plan):
         x = apply_layer_train(params["tail"][f"layer_{i}"], x, cfg, kind,
                               positions)
-    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    x = _text(cfg, L.apply_norm(cfg.norm, params["final_norm"], x), tokens)
     return L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
 
 
 def lm_loss(params, batch, cfg: ArchConfig) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (a 0-dim float32)."""
-    logits = lm_forward(params, batch["tokens"], cfg)
+    logits = lm_forward(params, batch["tokens"], cfg,
+                        patches=batch.get("patches"))
     return L.cross_entropy(logits, batch["labels"])
 
 
-def lm_prefill(params, tokens, cfg: ArchConfig):
-    """Forward over the prompt -> (last-position logits (B, 1, V), caches)."""
-    _check_family(cfg)
+def lm_prefill(params, tokens, cfg: ArchConfig, patches=None):
+    """Forward over the prompt (behind the patches for vlm) ->
+    (last-position logits (B, 1, V), caches)."""
     period_plan, _, tail_plan = split_plan(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def period_body(h, pp):
@@ -343,7 +397,6 @@ def lm_prefill(params, tokens, cfg: ArchConfig):
 def lm_decode_step(params, caches, token, pos, cfg: ArchConfig):
     """token: (B,) int; pos: (B,) int32 absolute position. Returns
     ``(logits (B, V), caches)``; the caches are updated in place."""
-    _check_family(cfg)
     period_plan, _, tail_plan = split_plan(cfg)
     x = _embed(params, cfg, token[:, None])
 

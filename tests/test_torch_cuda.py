@@ -666,3 +666,111 @@ def test_vectorized_hybrid_rows_live_on_the_card(cuda_device):
         assert float((pc.cpu() - ph).abs().max()) <= 1e-6
     assert card.queue_stats == host.queue_stats
     assert card.launches == host.launches > 1
+
+
+# --------------------------------------------------------------------------
+# the moe, ssm, hybrid, vlm and encdec families
+# --------------------------------------------------------------------------
+FAMILY_ARCHS = ["grok-1-314b", "arctic-480b", "mamba2-130m",
+                "recurrentgemma-9b", "internvl2-76b", "whisper-small"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_the_families_shapes(cuda_device, dtype):
+    """The shapes the families give the kernels: whisper's non-causal
+    encoder (48 rows of 1500 frames, Dh 64); the prefills of grok-1, arctic
+    and internvl2 (Dh 128, k/v expanded from 8 heads) and recurrentgemma's
+    (2,304 tokens, window 2048, Dh 256, k/v from 1 head); and decode at rep
+    1 (whisper), 6 (grok-1), 7 (arctic) and 8 (internvl2)."""
+    gen = torch.Generator(cuda_device).manual_seed(21)
+    q, k, v = (torch.randn((48, 1500, 64), generator=gen, device=cuda_device)
+               .to(dtype) for _ in range(3))
+    torch.testing.assert_close(
+        flash_attention_cuda(q, k, v, causal=False),
+        flash_attention_plain(q, k, v, causal=False), rtol=ATTN_TOL[dtype],
+        atol=ATTN_TOL[dtype])
+    # (B, S, H, KV, Dh, window): grok-1, arctic, internvl2 (256 patches +
+    # 512 tokens), recurrentgemma past its window
+    for B, S, H, KV, Dh, window in [(4, 512, 48, 8, 128, 0),
+                                    (4, 512, 56, 8, 128, 0),
+                                    (4, 768, 64, 8, 128, 0),
+                                    (2, 2304, 16, 1, 256, 2048)]:
+        q = torch.randn((B, S, H, Dh), generator=gen, device=cuda_device).to(dtype)
+        kv = torch.randn((2, B, S, KV, Dh), generator=gen,
+                         device=cuda_device).to(dtype)
+        heads = torch.arange(H, device=cuda_device) // (H // KV)
+        k, v = kv[0].index_select(2, heads), kv[1].index_select(2, heads)
+        kw = dict(causal=True, window=window)
+        torch.testing.assert_close(ops.flash_attention(q, k, v, **kw),
+                                   flash_attention_plain(q, k, v, **kw),
+                                   rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    for B, KV, rep, S, Dh in [(4, 12, 1, 88, 64), (4, 8, 6, 536, 128),
+                              (4, 8, 7, 536, 128), (4, 8, 8, 792, 128)]:
+        q = torch.randn((B, KV, rep, Dh), generator=gen, device=cuda_device).to(dtype)
+        kc, vc = (torch.randn((B, S, KV, Dh), generator=gen,
+                              device=cuda_device).to(dtype) for _ in range(2))
+        pos = torch.linspace(0, S - 1, B, device=cuda_device).round().to(torch.int32)
+        torch.testing.assert_close(ops.decode_attention(q, kc, vc, pos),
+                                   decode_attention_plain(q, kc, vc, pos),
+                                   rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_reduced_family_on_the_card_equals_the_cpu(cuda_device, arch):
+    """The reduced config at head dim 64 (the kernels take no 16) in float32
+    under ``attn_impl="pallas"``, weights drawn on the CPU: prefill logits
+    and 4 decode steps' logits on the card within 1e-4 of the CPU's (the
+    kernels against their plain versions, cuBLAS against the CPU's sums),
+    with the prefill through the flash kernel."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.models.module import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64,
+                              attn_impl="pallas")
+    host = api.init_model(torch.Generator().manual_seed(0), cfg)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = tree_map(lambda x: x.to(dev), host)
+        inputs = serve.prompt_inputs(cfg, 2, 20, 0, dev)
+        offset = serve.position_offset(cfg)
+        before = flash_attention_cuda.launches
+        with torch.inference_mode():
+            logits, caches = api.prefill(params, inputs, cfg)
+            if dev.type == "cuda":
+                assert flash_attention_cuda.launches > before or cfg.family == "ssm"
+            caches = tree_map(serve._grow, api.make_caches(
+                cfg, 2, offset + 20 + 12, device=dev), caches)
+            rows = [logits[:, -1]]
+            for i in range(4):
+                tok = torch.tensor([3 + i, 7 * i], dtype=torch.int32, device=dev)
+                pos = torch.full((2,), offset + 20 + i, dtype=torch.int32,
+                                 device=dev)
+                logits, caches = api.decode_step(
+                    params, caches, {"token": tok, "pos": pos}, cfg)
+                rows.append(logits)
+        out[dev.type] = torch.stack(rows).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "mamba2-130m",
+                                  "recurrentgemma-9b"])
+def test_reduced_family_olaf_async_on_the_card_equals_the_cpu(cuda_device,
+                                                              arch):
+    """moe, ssm and hybrid training: the reduced olaf-async run on the card
+    and on the CPU, combined counts exact, losses within rtol 1e-4, one
+    ``olaf_step`` launch per PS step."""
+    from repro_torch.launch import train
+    argv = ["--arch", arch, "--reduced", "--mode", "olaf-async", "--workers",
+            "4", "--batch", "8", "--seq", "16", "--steps", "4",
+            "--burst-size", "2", "--drain-k", "4", "--log-every", "0"]
+    olaf_step_cuda.launches = 0
+    card = train.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    assert olaf_step_cuda.launches == 4
+    host = train.main(argv + ["--device", "cpu"])
+    assert [c for _, _, c in card.log_rows] == [c for _, _, c in host.log_rows]
+    np.testing.assert_allclose([l for _, l, _ in card.log_rows],
+                               [l for _, l, _ in host.log_rows], rtol=1e-4)

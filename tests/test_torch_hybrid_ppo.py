@@ -109,18 +109,22 @@ def test_scenario_command_matches_repro(capsys):
     assert line.split(";")[:2] == want_line.split(";")[:2]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--arch", "grok-1-314b", "--reduced", "--mode", "sync"],
-     "moe family is not ported yet; it comes with ROADMAP queue 1 item 7a"),
-    (["--arch", "mamba2-130m", "--reduced", "--mode", "olaf-async"],
-     "ssm family is not ported yet; it comes with ROADMAP queue 1 item 7a"),
+STUB_FRONTEND = "use the family-specific example drivers for stub-frontend archs"
+
+
+@pytest.mark.parametrize("argv,code,match", [
+    (["--arch", "internvl2-76b", "--reduced", "--mode", "sync"],
+     STUB_FRONTEND, ""),
+    (["--arch", "whisper-small", "--reduced", "--mode", "olaf-async"],
+     STUB_FRONTEND, ""),
     (["--mode", "scenario", "--sim-impl", "vectorized", "--sim-shards", "2"],
-     "ROADMAP queue 1 item 5")])
-def test_scenario_command_refuses_unported_modes(argv, match, capsys,
+     2, "ROADMAP queue 1 item 5")])
+def test_scenario_command_refuses_unported_modes(argv, code, match, capsys,
                                                  monkeypatch):
-    """The LM modes refuse a family the port cannot build yet, and the
-    scenario command refuses the sharded vectorized simulator: exit 2
-    through the parser, before any model is built."""
+    """The LM modes refuse the vlm and encdec families with ``repro``'s own
+    ``SystemExit`` message, and the scenario command refuses the sharded
+    vectorized simulator (exit 2 through the parser), before any model is
+    built."""
     from repro_torch.models import api
 
     def no_model(*a, **kw):
@@ -129,5 +133,5 @@ def test_scenario_command_refuses_unported_modes(argv, match, capsys,
     monkeypatch.setattr(api, "init_model", no_model)
     with pytest.raises(SystemExit) as exc:
         port_train.main(argv + ["--device", "cpu"])
-    assert exc.value.code == 2
+    assert exc.value.code == code
     assert match in capsys.readouterr().err

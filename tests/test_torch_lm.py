@@ -193,7 +193,7 @@ def test_attention_strategies_match_repro(causal, window, q_offset):
 @pytest.mark.parametrize("impl", ["full", "pallas"])
 def test_windowed_attention_layer_matches_repro(impl):
     """recurrentgemma's local-attention layer: the prefill ring buffer and
-    the windowed decode (the family itself waits for its slice)."""
+    the windowed decode (the whole family: tests/test_torch_families.py)."""
     jc, pc = _cfgs("recurrentgemma-9b", impl)
     p_j = JTF.init_layer(jax.random.key(4), jc, "attn")
     p_t = TF.params_from_jax(p_j, device="cpu")
@@ -288,20 +288,6 @@ def test_pallas_decode_route_folds_heads_h14():
     with pytest.raises(ValueError, match="padded_heads == n_heads"):
         TF._decode_kernel_route(q, cache, cache,
                                 torch.zeros(1, dtype=torch.int32), padded)
-
-
-@pytest.mark.parametrize("arch,kind", [("grok-1-314b", "moe"),
-                                       ("mamba2-130m", "ssm"),
-                                       ("recurrentgemma-9b", "rec"),
-                                       ("whisper-small", None),
-                                       ("internvl2-76b", None)])
-def test_later_families_raise_naming_their_item(arch, kind):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7a"):
-        api.init_model(torch.Generator().manual_seed(0), cfg)
-    if kind:
-        with pytest.raises(NotImplementedError, match="queue 1 item 7a"):
-            TF.init_layer(torch.Generator().manual_seed(0), cfg, kind)
 
 
 # ---------------------------------------------------------------------------
