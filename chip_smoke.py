@@ -25,7 +25,14 @@ grok-1, arctic, internvl2 and whisper served at their published widths,
 depth cut only where one card forces it, each one's first period held in
 float32 to the plain route and its reduced config to the CPU; mamba2
 trained olaf-async at full width; the reduced grok-1, mamba2 and
-recurrentgemma olaf-async runs on the card held to the CPU's). The
+recurrentgemma olaf-async runs on the card held to the CPU's), the
+trainer's checkpointed PS recovery (``[recovery]``: a PS bounce restored
+from a snapshot, every drain one ``olaf_step`` launch before and after it,
+card against CPU snapshot for snapshot), ``optim/compress.py``
+(``[compress]``: top-k ties and non-finite inputs card against CPU, then
+timed at smollm-360m's flat size), and the example drivers
+(``[examples]``: the quickstart's ``olaf_combine`` demo, ``lm_train
+--olaf``, ``serve_decode``). The
 attention kernels are held to their plain versions in both the
 folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one, and
 timed beside SDPA. It prints each kernel's ptxas registers and spills,
@@ -44,12 +51,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,6 +70,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import olaf_queue  # noqa: E402
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
+from repro_torch.core.netsim import FaultSpec, PSFault, WorkerFault  # noqa: E402
 from repro_torch.core.txctl import TxControlConfig  # noqa: E402
 from repro_torch.core import hybrid, netsim, topology, vecsim  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -75,6 +85,10 @@ from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.examples import lm_train as example_lm_train  # noqa: E402
+from repro_torch.examples import quickstart as example_quickstart  # noqa: E402
+from repro_torch.examples import serve_decode as example_serve_decode  # noqa: E402
+from repro_torch.optim import compress  # noqa: E402
 from repro_torch.models.module import tree_leaves  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.models import module as lm_module  # noqa: E402
@@ -365,20 +379,26 @@ def trainer_cfg(**kw):
         ps_drain_k=2, tx_control=TxControlConfig(), **kw)
 
 
-def injected_payload_run(device):
+class InjectedTrainer(AsyncDRLTrainer):
     """The trainer with seeded payloads in place of PPO gradients, so the
     card's run can be held to the CPU's plain path on the same input."""
-    class Injected(AsyncDRLTrainer):
-        def _make_payload(self, now, worker_id):
-            calls = self.__dict__.setdefault("_calls", {})
-            calls[worker_id] = calls.get(worker_id, 0) + 1
-            rng = np.random.default_rng([worker_id, calls[worker_id]])
-            return (rng.normal(size=self._dim).astype(np.float32),
-                    float(np.float32(rng.normal())))
 
-    trainer = Injected(trainer_cfg(), device=device)
+    def _make_payload(self, now, worker_id):
+        calls = self.__dict__.setdefault("_calls", {})
+        calls[worker_id] = calls.get(worker_id, 0) + 1
+        rng = np.random.default_rng([worker_id, calls[worker_id]])
+        return (rng.normal(size=self._dim).astype(np.float32),
+                float(np.float32(rng.normal())))
+
+
+def injected_trainer(cfg, device):
+    trainer = InjectedTrainer(cfg, device=device)
     trainer.ps.w = np.linspace(-1.0, 1.0, trainer._dim)
-    return trainer.run()
+    return trainer
+
+
+def injected_payload_run(device):
+    return injected_trainer(trainer_cfg(), device).run()
 
 
 
@@ -1503,6 +1523,45 @@ class CycleCapture:
                                 device=send.device), k=k, thr=thr)
 
 
+class StepCheck:
+    """Replaces ``ops.olaf_step`` inside a ``with`` block and holds every
+    call's result (the kernel's, on the card) to ``olaf_step_plain`` on a
+    clone of the same queue and the same burst, with ``ops``'s churn mask
+    applied to both; ``err`` is the largest payload difference."""
+
+    def __init__(self, what):
+        self.what, self.calls, self.err = what, 0, 0.0
+
+    def __enter__(self):
+        self._orig = orig = ops.olaf_step
+        sig = inspect.signature(orig)
+
+        def wrapper(state, *a, **kw):
+            p = sig.bind(state, *a, **kw)
+            p.apply_defaults()
+            p = p.arguments
+            before = state.clone()
+            got = orig(state, *a, **kw)
+            want = olaf_step_plain(
+                before, p["clusters"], p["workers"], p["gen_times"],
+                p["rewards"], p["payloads"], p["k"], p["reward_threshold"],
+                p["send"], p["capacity"], p["screen"])
+            if p["active_workers"] is not None:
+                want = (want[0], ops.expire_inactive_drains(
+                    want[1], p["active_workers"]))
+            self.calls += 1
+            self.err = max(self.err, compare(
+                want, got, f"{self.what}: olaf_step call {self.calls}"))
+            return got
+
+        ops.olaf_step = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        ops.olaf_step = self._orig
+        return False
+
+
 def ps_step_bytes(cap: CycleCapture, D: int, param_bytes: int):
     """The least bytes of one PS step: the ``olaf_step`` cycle's
     (``cycle_cost`` on this step's own queue and burst), AdamW's (the
@@ -1966,6 +2025,307 @@ def families_phase(dev, smi) -> dict:
     return dict(counts=counts, rows=rows)
 
 
+# ---------------------------------------------------------------------------
+# [recovery]: checkpointed PS recovery in AsyncDRLTrainer
+# ---------------------------------------------------------------------------
+RECOVERY_RTOL, RECOVERY_ATOL = 1e-5, 1e-6  # snapshot payloads, card vs CPU
+
+
+def recovery_cfg(ckpt_dir):
+    """``tests/test_node_faults.py``'s churn configuration (two worker
+    crashes, a slowed worker, one PS bounce at 0.9) on the lander
+    actor-critic, a snapshot every 3 deliveries."""
+    faults = FaultSpec(
+        workers=[WorkerFault(worker=1, crash_t=0.4, restart_delay=0.5),
+                 WorkerFault(worker=3, crash_t=0.6),
+                 WorkerFault(worker=2, slowdown=2.0)],
+        ps=[PSFault(restart_t=0.9, recovery=0.05)])
+    return AsyncTrainConfig(
+        env="lander", n_clusters=2, workers_per_cluster=2,
+        n_updates_per_worker=8, queue="olaf", horizon=3.0, seed=3,
+        out_gbps=1e-3, tx_control=TxControlConfig(ack_timeout=0.3,
+                                                  max_retries=2),
+        faults=faults, staleness_bound=0.5, max_stale_defers=1,
+        ckpt_dir=ckpt_dir, ckpt_every=3)
+
+
+def recovery_run(device, ckpt_dir):
+    """The injected-payload trainer under :func:`recovery_cfg`, with the
+    ``olaf_step`` launches of each drain, the drain at which each restore
+    landed, and the wall time (synchronised) of each snapshot and
+    restore."""
+    tr = injected_trainer(recovery_cfg(ckpt_dir), device)
+    rec = dict(per_drain=[], restored_at=[], save_s=[], restore_s=[])
+    drain, save, restart = (tr._drain_ps_queue, tr._save_ps_checkpoint,
+                            tr._on_ps_restart)
+    on_card = torch.device(device).type == "cuda"
+
+    def timed(fn, into, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        if on_card:
+            torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+
+    def counted_drain(now):
+        before = olaf_step_cuda.launches
+        n = drain(now)
+        rec["per_drain"].append(olaf_step_cuda.launches - before)
+        return n
+
+    def counted_restart(now):
+        timed(restart, rec["restore_s"], now)
+        rec["restored_at"].append(len(rec["per_drain"]))
+
+    tr._drain_ps_queue = counted_drain
+    tr._save_ps_checkpoint = lambda now: timed(save, rec["save_s"], now)
+    tr.sim_cfg.on_ps_restart = counted_restart
+    return tr, tr.run(), rec
+
+
+def compare_snapshots(card_dir, host_dir) -> float:
+    """Every snapshot of the card's run against the CPU run's: the same
+    steps and keys, integers and bools exact, floats within
+    ``RECOVERY_RTOL``/``RECOVERY_ATOL``, the manifests' ``extra`` equal.
+    Returns the largest float difference."""
+    names = sorted(pathlib.Path(card_dir).iterdir())
+    require([n.name for n in names]
+            == sorted(n.name for n in pathlib.Path(host_dir).iterdir()),
+            "recovery: the card and the CPU wrote other snapshot files")
+    err = 0.0
+    for path in names:
+        other = pathlib.Path(host_dir) / path.name
+        if path.suffix == ".json":
+            require(json.loads(path.read_text())["extra"]
+                    == json.loads(other.read_text())["extra"],
+                    f"recovery: {path.name} extra differs")
+        elif path.suffix == ".npz":
+            with np.load(path) as a, np.load(other) as b:
+                require(sorted(a.files) == sorted(b.files),
+                        f"recovery: {path.name} keys differ")
+                for k in a.files:
+                    x, y = a[k], b[k]
+                    require(x.dtype == y.dtype and x.shape == y.shape,
+                            f"recovery: {path.name} {k} dtype or shape")
+                    if x.dtype.kind == "f":
+                        require(np.allclose(x, y, rtol=RECOVERY_RTOL,
+                                            atol=RECOVERY_ATOL),
+                                f"recovery: {path.name} {k} differs")
+                        fin = np.isfinite(x)  # the -inf reward sentinels
+                        err = max(err, float(np.abs(x[fin] - y[fin])
+                                             .max(initial=0)))
+                    else:
+                        require(np.array_equal(x, y),
+                                f"recovery: {path.name} {k} differs")
+    return err
+
+
+def recovery_phase(dev) -> dict:
+    """``[recovery]``: the trainer with a PS bounce and snapshots every 3
+    deliveries, on the card (counted from 0) and on the CPU, each writing
+    its own temporary directory."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as card_dir, \
+            tempfile.TemporaryDirectory() as host_dir:
+        reset_counts()
+        tr, res, rec = recovery_run(dev, card_dir)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        htr, hres, _ = recovery_run("cpu", host_dir)
+        sr, hsr = res.sim_result, hres.sim_result
+        after = len(rec["per_drain"]) - rec["restored_at"][0] \
+            if rec["restored_at"] else 0
+        log(f"[recovery] lander D={tr._dim} churn + PS bounce, snapshot "
+            f"every 3 deliveries: delivered={sr.received_at_ps} "
+            f"applied={res.ps.applied} rejected={res.ps.rejected} "
+            f"ps_restarts={tr.ps_restarts} recovered_from={tr.recovered_from} "
+            f"drains={len(rec['per_drain'])} ({after} after the restore) "
+            f"olaf_step launches per drain {sorted(set(rec['per_drain']))}; "
+            f"launch counts {counts}")
+        require(tr._dim == 941, "the lander actor-critic is 941 floats")
+        require(rec["per_drain"] and all(n == 1 for n in rec["per_drain"]),
+                "recovery: a drain was not exactly one olaf_step launch")
+        require(counts["olaf_step"] == len(rec["per_drain"]),
+                "recovery: olaf_step launched outside the drains")
+        require(after > 0, "recovery: no drain after the restore")
+        require(tr.recovered_from and tr.recovered_from == htr.recovered_from,
+                f"recovery: recovered_from {tr.recovered_from} vs the CPU's "
+                f"{htr.recovered_from}")
+        require(sr.ps_restarts == tr.ps_restarts == 1, "recovery: one bounce")
+        for f in dataclasses.fields(sr):
+            if f.name != "delivered_updates":
+                require(getattr(sr, f.name) == getattr(hsr, f.name),
+                        f"recovery: {f.name} differs between card and CPU")
+        require((res.ps.applied, res.ps.rejected)
+                == (hres.ps.applied, hres.ps.rejected),
+                "recovery: PS counts differ")
+        require(np.allclose(res.ps.w, hres.ps.w, rtol=1e-6, atol=0),
+                "recovery: PS weights differ")
+        require(all(v.device.type == tr.device.type
+                    for v in tr._ps_queue.fields().values()),
+                "recovery: the restored queue left the card")
+        snap_err = compare_snapshots(card_dir, host_dir)
+        n_snap = len(list(pathlib.Path(card_dir).glob("*.npz")))
+    save_ms = 1e3 * sum(rec["save_s"]) / max(len(rec["save_s"]), 1)
+    restore_ms = 1e3 * sum(rec["restore_s"]) / max(len(rec["restore_s"]), 1)
+    log(f"[recovery] card equals CPU: counters, recovered_from, PS counts; "
+        f"max |dw| {float(np.abs(res.ps.w - hres.ps.w).max()):.3g} "
+        f"(rtol 1e-6); {n_snap} snapshots equal (ints exact, floats max "
+        f"|err| {snap_err:.3g}, rtol {RECOVERY_RTOL} atol {RECOVERY_ATOL}); "
+        f"{save_ms:.3f} ms per snapshot ({len(rec['save_s'])}), "
+        f"{restore_ms:.3f} ms per restore ({len(rec['restore_s'])}); "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, save_ms=save_ms, restore_ms=restore_ms,
+                n_snapshots=n_snap, drains=len(rec["per_drain"]),
+                drains_after_restore=after)
+
+
+# ---------------------------------------------------------------------------
+# [compress]: optim/compress.py on the card
+# ---------------------------------------------------------------------------
+COMPRESS_CHECK_D = 2**20 + 3
+COMPRESS_D = TRAIN_D  # smollm-360m's flat update
+
+
+def compress_cases(gen, dev, D):
+    """(name, g, k): ties at the k-th magnitude with signed zeros, and the
+    same with NaN and ±inf sprinkled in."""
+    mags = torch.tensor([0.0, 0.25, 0.5, 4.0], device=dev)
+    pick = torch.randint(0, 4, (D,), generator=gen, device=dev)
+    sign = torch.randint(0, 2, (D,), generator=gen, device=dev) * 2.0 - 1.0
+    ties = mags[pick] * sign  # magnitude 0 carries -0.0 and 0.0
+    n4 = int((pick == 3).sum())
+    wild = ties.clone()
+    where = torch.randint(0, D, (3, 64), generator=gen, device=dev)
+    wild[where[0]] = math.nan
+    wild[where[1]] = math.inf
+    wild[where[2]] = -math.inf
+    return [("ties", ties, n4 + 1000), ("ties k=1", ties, 1),
+            ("nonfinite", wild, n4 + 1000), ("k=D", ties[:4099], 4099)]
+
+
+def compress_phase(dev, smi) -> dict:
+    """``[compress]``: ``topk_compress`` on the card against the CPU on the
+    tie and non-finite cases (indices and value bits exact); then, at
+    smollm-360m's flat size, ``topk_compress`` (k = D/1000) and
+    ``int8_quantize`` timed with CUDA events, beside ``torch.topk`` alone
+    (which finds the same set up to ties, in no fixed order)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for name, g, k in compress_cases(gen, dev, COMPRESS_CHECK_D):
+        i_card, v_card = compress.topk_compress(g, k)
+        i_host, v_host = compress.topk_compress(g.cpu(), k)
+        require(torch.equal(i_card.cpu(), i_host),
+                f"compress {name}: indices differ between card and CPU")
+        require(torch.equal(v_card.cpu().view(torch.int32),
+                            v_host.view(torch.int32)),
+                f"compress {name}: value bits differ between card and CPU")
+        q_card, s_card = compress.int8_quantize(g)
+        q_host, s_host = compress.int8_quantize(g.cpu())
+        require(torch.equal(q_card.cpu(), q_host)
+                and s_card.item() == s_host.item(),
+                f"compress {name}: int8_quantize differs")
+        log(f"[compress] {name} D={g.numel()} k={k}: card equals CPU "
+            f"(indices, value bits, int8 codes and scale)")
+    D, k = COMPRESS_D, COMPRESS_D // 1000
+    g = torch.randn(D, generator=gen, device=dev)
+    idx, vals = compress.topk_compress(g, k)
+    kth = vals.abs().min()
+    require(idx.numel() == k and bool((vals.abs()[:-1] >= vals.abs()[1:]).all())
+            and int((g.abs() > kth).sum()) < k
+            and torch.equal(g[idx.long()], vals),
+            "compress: the full-size top-k is not the k largest, in order")
+    q, scale = compress.int8_quantize(g)
+    require(bool(((compress.int8_dequantize(q, scale) - g).abs()
+                  <= scale * 0.51).all()), "compress: int8 error bound")
+    del idx, vals, q
+    t_topk = time_ms(lambda x: compress.topk_compress(x, k), lambda: g, 3)
+    t_lib = time_ms(lambda x: torch.topk(x.abs(), k, sorted=False),
+                    lambda: g, 3)
+    t_q = time_ms(compress.int8_quantize, lambda: g, 3)
+    log(f"[compress] D={D} k={k} float32 on {smi}: topk_compress "
+        f"{t_topk:.3f} ms, torch.topk of |g| alone {t_lib:.3f} ms, "
+        f"int8_quantize {t_q:.3f} ms (CUDA events, 3 reps); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del g
+    torch.cuda.empty_cache()
+    return dict(topk_ms=t_topk, torch_topk_ms=t_lib, int8_ms=t_q, D=D, k=k)
+
+
+# ---------------------------------------------------------------------------
+# [examples]: the port's example drivers on the card
+# ---------------------------------------------------------------------------
+def examples_phase(dev) -> dict:
+    """``[examples]``: the quickstart (its kernel demo one ``olaf_combine``
+    launch, held to the plain version; then the kernel at the demo's shape
+    on seeded operands), ``lm_train --olaf --steps 4`` (one ``olaf_step``
+    launch per PS step, each held to the plain version on the same queue
+    and burst; then the whole run against the CPU's) and ``serve_decode``
+    for smollm-360m, each on the card with the counts set to 0 just before
+    it."""
+    t_phase = time.perf_counter()
+    counts = {}
+    reset_counts()
+    quick = example_quickstart.main([])
+    torch.cuda.synchronize()
+    counts["examples quickstart"] = read_counts()
+    require(counts["examples quickstart"]["olaf_combine"] == 1,
+            "quickstart: not one olaf_combine launch")
+    require(quick["equal"] and quick["counts_equal"],
+            "quickstart: the kernel differs from its plain version")
+    # the demo's all-ones updates make every slot 1.0: seeded operands at
+    # its shape (4 slots of 256, 8 updates) tell the kernel's weighting apart
+    gen = torch.Generator(device=dev).manual_seed(19)
+    seeded_err = check_combine("quickstart shape, seeded",
+                               make_window(gen, dev, 1, 4, 8, 256))
+    log(f"[examples] quickstart: olaf_combine kernel == plain (demo max "
+        f"|err| {quick['max_abs_err']:.3g}, counts {quick['counts']}; seeded "
+        f"at its shape {seeded_err:.3g}); launch counts "
+        f"{counts['examples quickstart']}")
+    reset_counts()
+    with StepCheck("lm_train") as step_check:
+        lm = example_lm_train.main(["--olaf", "--steps", "4"])
+        torch.cuda.synchronize()
+    counts["examples lm_train"] = read_counts()
+    losses = [l for _, l, _ in lm.log_rows]
+    require(len(losses) == 4 and all(map(math.isfinite, losses)),
+            f"lm_train: losses {losses}")
+    require(counts["examples lm_train"]["olaf_step"] == 4
+            == step_check.calls,
+            "lm_train: not one olaf_step launch per PS step")
+    host = example_lm_train.main(["--olaf", "--steps", "4", "--device",
+                                  "cpu"])
+    for f in ("deferred_total", "stale_total", "screened_total"):
+        require(getattr(lm, f) == getattr(host, f),
+                f"lm_train: {f} differs between card and CPU")
+    require([c for *_, c in lm.log_rows] == [c for *_, c in host.log_rows],
+            "lm_train: combined counts differ between card and CPU")
+    l_host = [l for _, l, _ in host.log_rows]
+    require(np.allclose(losses, l_host, rtol=TRAIN_TOL, atol=0),
+            f"lm_train: losses {losses} vs the CPU's {l_host}")
+    log(f"[examples] lm_train --olaf --steps 4 (D={lm.dim}): losses "
+        f"{losses}; each olaf_step launch == plain on its own queue and "
+        f"burst (max |err| {step_check.err:.3g}); card equals CPU: combined "
+        f"{[c for *_, c in lm.log_rows]}, losses max rel diff "
+        f"{float(np.max(np.abs(np.subtract(losses, l_host)) / np.abs(l_host))):.3g}"
+        f" (rtol {TRAIN_TOL}); launch counts {counts['examples lm_train']}")
+    del lm, host
+    reset_counts()
+    served = example_serve_decode.main(["--arch", "smollm-360m"])
+    torch.cuda.synchronize()
+    counts["examples serve_decode"] = read_counts()
+    tokens = served["smollm-360m"].tokens
+    require(tokens.shape == (2, 13) and (tokens >= 0).all(),
+            "serve_decode: tokens")
+    log(f"[examples] serve_decode smollm-360m reduced: tokens "
+        f"{tokens.shape}; launch counts {counts['examples serve_decode']}; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts,
+                combine_err=max(quick["max_abs_err"], seeded_err),
+                step_err=step_check.err)
+
+
 def demangle(names):
     """mangled -> readable kernel name (``void flash_wgmma<128>``), as the
     toolkit's ``cu++filt -p`` prints it; the mangled names where that
@@ -2372,6 +2732,12 @@ def main() -> int:
     # ---- 4g. the other families: moe, ssm, hybrid, vlm, encdec -----------
     families = families_phase(dev, smi)
 
+    # ---- 4h. checkpointed PS recovery, compression, the example drivers --
+    recovery = recovery_phase(dev)
+    compress_phase(dev, smi)
+    examples = examples_phase(dev)
+    max_err = max(max_err, examples["step_err"])
+
     # ---- 5. timing ---------------------------------------------------------
     # the timer's floor: one kernel that adds 1 to one element, timed as
     # every kernel below is (the small OLAF shapes sit a few µs above it)
@@ -2425,7 +2791,8 @@ def main() -> int:
                  enqueue=enqueue_counts,
                  serve=serve_counts, train=train["counts"],
                  **{f"serve {a}" if not a.startswith("train") else a: c
-                    for a, c in families["counts"].items()})
+                    for a, c in families["counts"].items()},
+                 recovery=recovery["counts"], **examples["counts"])
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -2459,13 +2826,19 @@ def main() -> int:
                        "max_abs_err", "ps_step_ms", "ps_step_bound_ms",
                        "step_s", "idle_share", "idle_share_profiled",
                        "peak_bytes")}),
+        recovery=dict(
+            path="AsyncDRLTrainer with a PS bounce and snapshots every 3 "
+                 "deliveries (lander D=941): one launch per drain",
+            **{k: recovery[k] for k in ("save_ms", "restore_ms",
+                                        "n_snapshots", "drains",
+                                        "drains_after_restore")}),
         timer_floor_ms=floor_ms, launches_by_path=by_path("olaf_step"))
     combine_entry = dict(
         name="olaf_combine", route="cuda",
         source="src/repro_torch/kernels/csrc/olaf_combine.cu",
         replaces="src/repro/kernels/olaf_combine.py:95",
         launches=hybrid_counts["olaf_combine"],
-        max_abs_err=max(comb_err, fwd_err),
+        max_abs_err=max(comb_err, fwd_err, examples["combine_err"]),
         ms=t_ca[4]["ms"], plain_ms=t_ca[4]["plain_ms"],
         bound_ms=t_ca[4]["bound_ms"], bound_by=t_ca[4]["bound_by"],
         library_ms=None, library_note=no_library,

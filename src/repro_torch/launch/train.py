@@ -243,6 +243,11 @@ def read_stats(pending: List[Dict[str, torch.Tensor]]) -> np.ndarray:
 # --------------------------------------------------------------------------
 # olaf-async
 # --------------------------------------------------------------------------
+def _device_arg(args) -> str:
+    """``args.device``, or ``"cuda"`` for a Namespace built without it."""
+    return getattr(args, "device", "cuda")
+
+
 class OlafAsyncTrainer:
     """``repro``'s ``run_olaf_async`` as an object: set-up (and resume) in
     the constructor, one PS iteration per :meth:`step`, the whole run in
@@ -256,31 +261,38 @@ class OlafAsyncTrainer:
     """
 
     def __init__(self, cfg, args, device=None) -> None:
-        dev = resolve_device(args.device if device is None else device)
+        dev = resolve_device(_device_arg(args) if device is None else device)
         self.cfg, self.args, self.device = cfg, args, dev
         W = args.workers
         opt = OptConfig(lr=args.lr, grad_clip=1.0)
         params = init_params(cfg, args.seed, dev)
         self.dim = flat_size(params)
+        # the optional flags are read with repro's defaults, so a partial
+        # Namespace (examples/lm_train.py's) runs as it does in repro;
         # a capacity below the cluster count (--queue-slots) makes the
         # congestion regime reachable, which arms the send gate
-        capacity = args.queue_slots or max(W, 4)
-        self.crash_set = sorted({int(s) for s in args.crash_workers.split(",")
+        capacity = getattr(args, "queue_slots", 0) or max(W, 4)
+        self.crash_set = sorted({int(s) for s in
+                                 getattr(args, "crash_workers", "").split(",")
                                  if s})
-        self.churn = bool(self.crash_set) and args.crash_at >= 0
+        self.crash_at = getattr(args, "crash_at", -1)
+        self.restart_at = getattr(args, "restart_at", -1)
+        self.churn = bool(self.crash_set) and self.crash_at >= 0
         n_clusters = max(W // 2, 2)
         self.n_clusters = n_clusters
         self.ps_cfg = PSConfig(
             drain_k=max(1, min(args.drain_k, capacity)),
             q_max=float(capacity),
-            tx=TxControlConfig(delta_threshold=args.txctl_threshold,
-                               slope_mode=args.txctl_mode),
+            tx=TxControlConfig(
+                delta_threshold=getattr(args, "txctl_threshold", 0.5),
+                slope_mode=getattr(args, "txctl_mode", "fairness")),
             opt=opt,
             cluster_of=torch.arange(W, dtype=torch.int32, device=dev)
             % n_clusters,
-            screen=args.ingress_screen, screen_factor=args.screen_factor,
-            robust_threshold=args.robust_threshold,
-            stale_bound=args.staleness_bound or None)
+            screen=bool(getattr(args, "ingress_screen", False)),
+            screen_factor=getattr(args, "screen_factor", 16.0),
+            robust_threshold=getattr(args, "robust_threshold", 0.25),
+            stale_bound=getattr(args, "staleness_bound", 0.0) or None)
         self.shards = [SyntheticLM(DataConfig(
             vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
             n_shards=W, shard_id=i, seed=args.seed)) for i in range(W)]
@@ -304,7 +316,8 @@ class OlafAsyncTrainer:
             med=torch.zeros((), dtype=torch.float32, device=dev),
             gen=torch.Generator(device=dev).manual_seed(args.seed + 101))
         self.it = 0
-        if args.ckpt and args.resume and latest_step(args.ckpt) is not None:
+        if args.ckpt and getattr(args, "resume", False) \
+                and latest_step(args.ckpt) is not None:
             self._restore()
             print(f"resumed olaf-async from step {self.it}")
         self.pending: List[Dict[str, torch.Tensor]] = []
@@ -351,13 +364,13 @@ class OlafAsyncTrainer:
         args = self.args
         if not self.churn:
             return
-        if it == args.crash_at:
+        if it == self.crash_at:
             # crashed workers leave the argmin; their queued updates expire
             self.worker_next[self.crash_set] = np.inf
             self._set_active(False)
             if args.log_every:
                 print(f"crash at {it}: workers {self.crash_set} down")
-        if args.restart_at >= 0 and it == args.restart_at:
+        if self.restart_at >= 0 and it == self.restart_at:
             # elastic rejoin, one compute interval past the live frontier
             frontier = self.worker_next[np.isfinite(self.worker_next)].max()
             for w in self.crash_set:
@@ -480,7 +493,7 @@ def run_sync(cfg, args, device=None) -> SyncResult:
     """Synchronous training (``repro``'s ``run_sync``): one global batch per
     step, the loss read back every step. Resumes from ``--ckpt`` whenever
     it holds a checkpoint, as ``repro`` does."""
-    dev = resolve_device(args.device if device is None else device)
+    dev = resolve_device(_device_arg(args) if device is None else device)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                   global_batch=args.batch, seed=args.seed))
     opt = OptConfig(lr=args.lr, grad_clip=1.0)

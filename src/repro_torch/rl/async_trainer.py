@@ -20,6 +20,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import (latest_step, read_manifest,
+                                         restore_checkpoint, save_checkpoint)
 from repro_torch.configs.olaf_ppo import PPOConfig
 from repro_torch.core.netsim import (Link, NetworkSimulator, SimCfg,
                                      SwitchCfg, WorkerCfg)
@@ -70,7 +72,11 @@ class AsyncTrainConfig:
     # Hard staleness admission at the PS egress (netsim); None disables it.
     staleness_bound: Optional[float] = None
     max_stale_defers: int = 1
-    # Checkpointed PS recovery is not ported yet: a set ckpt_dir raises.
+    # Checkpointed PS recovery: every ckpt_every deliveries the PS state
+    # (float64 weights + running-average gradient, gating scalars, staging
+    # queue) snapshots atomically to ckpt_dir; a PSFault restart restores
+    # the latest snapshot and drops the in-flight staging buffer (the
+    # lost-window semantics — deliveries since the snapshot are gone).
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 0
 
@@ -95,10 +101,6 @@ class AsyncDRLTrainer:
     without a card unless the caller passes ``device="cpu"``)."""
 
     def __init__(self, cfg: AsyncTrainConfig, device="cuda") -> None:
-        if cfg.ckpt_dir:
-            raise NotImplementedError(
-                "checkpointed PS recovery (ckpt_dir) is not ported yet: it "
-                "comes with the port of checkpoint/ckpt.py in a later slice")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         env = make_env(cfg.env)
@@ -129,6 +131,7 @@ class AsyncDRLTrainer:
         self._ps_buf: List[tuple] = []
         self._deliver_count = 0
         self.ps_restarts = 0
+        self.recovered_from: List[int] = []  # snapshot step per PS restart
         rng = np.random.default_rng(cfg.seed)
 
         if cfg.topology is not None:
@@ -186,13 +189,56 @@ class AsyncDRLTrainer:
                              upd.reward, np.asarray(upd.payload, np.float32)))
         if len(self._ps_buf) >= self._drain_k:
             self._drain_ps_queue(now)
+        if self.cfg.ckpt_dir and self.cfg.ckpt_every \
+                and self._deliver_count % self.cfg.ckpt_every == 0:
+            self._save_ps_checkpoint(now)
         return np.asarray(self.ps.w, np.float32)
 
+    def _save_ps_checkpoint(self, now: float) -> None:
+        """Atomic snapshot of the recoverable PS state, in ``repro``'s files
+        (``aux/ps`` the float64 ``w`` and ``g_a``, ``aux/queue`` the staging
+        queue in ``JaxQueueState``'s field order). ``save_checkpoint`` copies
+        the queue to the host before it returns, so the next drain, which
+        the CUDA ``olaf_step`` makes in place, cannot reach the snapshot.
+        The staging buffer (``_ps_buf``) is deliberately NOT snapshotted:
+        deliveries between the snapshot and a crash are the lost window."""
+        ps = self.ps
+        g_a = ps.g_a if ps.g_a is not None else np.zeros_like(ps.w)
+        save_checkpoint(
+            self.cfg.ckpt_dir, self._deliver_count,
+            params=dict(w=np.asarray(ps.w, np.float32)),
+            aux=dict(ps=dict(w=ps.w, g_a=g_a), queue=self._ps_queue),
+            extra=dict(r_g=ps.r_g, has_g_a=ps.g_a is not None,
+                       applied=ps.applied, rejected=ps.rejected, time=now))
+
     def _on_ps_restart(self, now: float) -> None:
-        """PSFault: the in-flight staging buffer is lost; the PS keeps its
-        current weights (there is no snapshot to roll back to)."""
+        """PSFault recovery: the in-flight staging buffer is lost; the PS
+        rolls back to the latest snapshot (weights, running average,
+        gating scalars, staging queue, the queue back on the trainer's
+        device). Without checkpointing configured the PS keeps its current
+        weights and only loses the buffer."""
         self.ps_restarts += 1
         self._ps_buf = []
+        d = self.cfg.ckpt_dir
+        if not d:
+            return
+        step = latest_step(d)
+        if step is None:
+            return
+        man = read_manifest(d, step)
+        # the live queue is the ``like``: its tensors' device and dtypes
+        like = dict(ps=dict(w=self.ps.w, g_a=np.zeros_like(self.ps.w)),
+                    queue=self._ps_queue)
+        _, _, _, aux = restore_checkpoint(
+            d, step, params_like=dict(w=np.asarray(self.ps.w, np.float32)),
+            aux_like=like)
+        self.ps.w = aux["ps"]["w"]
+        self.ps.g_a = aux["ps"]["g_a"] if man["extra"]["has_g_a"] else None
+        self.ps.r_g = man["extra"]["r_g"]
+        self.ps.applied = man["extra"]["applied"]
+        self.ps.rejected = man["extra"]["rejected"]
+        self._ps_queue = aux["queue"]
+        self.recovered_from.append(step)
 
     def _drain_ps_queue(self, now: float) -> int:
         """One fused ``olaf_step`` call (burst enqueue + drain-k) over the

@@ -774,3 +774,77 @@ def test_reduced_family_olaf_async_on_the_card_equals_the_cpu(cuda_device,
     assert [c for _, _, c in card.log_rows] == [c for _, _, c in host.log_rows]
     np.testing.assert_allclose([l for _, l, _ in card.log_rows],
                                [l for _, l, _ in host.log_rows], rtol=1e-4)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its ``[recovery]`` phase's trainer
+    configuration, run and snapshot comparison are the ones used here."""
+    import importlib.util
+    import pathlib
+    import sys
+    if "chip_smoke" not in sys.modules:
+        path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = module  # its dataclasses look it up
+        spec.loader.exec_module(module)
+    return sys.modules["chip_smoke"]
+
+
+@pytest.mark.cuda
+def test_recovery_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """Checkpointed PS recovery under ``tests/test_node_faults.py``'s churn
+    and PS bounce, a snapshot every 3 deliveries: the card's run restores
+    from the same snapshot as the CPU's, every drain (those after the
+    restore too) is one ``olaf_step`` launch, the restored queue lives on
+    the card, and every snapshot equals the CPU's (ints exact, floats
+    within rtol 1e-5, atol 1e-6; the CUDA kernel updates the queue in
+    place, so a snapshot that kept a reference would show the later
+    drains)."""
+    smoke = _chip_smoke()
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    card, res, rec = smoke.recovery_run(cuda_device, str(tmp_path / "card"))
+    torch.cuda.synchronize()
+    host, hres, _ = smoke.recovery_run("cpu", str(tmp_path / "cpu"))
+    assert rec["per_drain"] and set(rec["per_drain"]) == {1}
+    assert rec["restored_at"] and rec["restored_at"][0] < len(rec["per_drain"])
+    assert card.recovered_from and card.recovered_from == host.recovered_from
+    assert all(v.device.type == "cuda"
+               for v in card._ps_queue.fields().values())
+    for f in dataclasses.fields(res.sim_result):
+        if f.name != "delivered_updates":
+            assert getattr(res.sim_result, f.name) == \
+                getattr(hres.sim_result, f.name), f.name
+    assert (res.ps.applied, res.ps.rejected) == (hres.ps.applied,
+                                                 hres.ps.rejected)
+    np.testing.assert_allclose(res.ps.w, hres.ps.w, rtol=1e-6, atol=0)
+    assert (smoke.RECOVERY_RTOL, smoke.RECOVERY_ATOL) == (1e-5, 1e-6)
+    smoke.compare_snapshots(tmp_path / "card", tmp_path / "cpu")
+    assert list((tmp_path / "card").glob("*.npz"))
+
+
+@pytest.mark.cuda
+def test_topk_compress_ties_on_the_card(cuda_device):
+    """``topk_compress`` at D = 2**20 + 3 with the k-th magnitude tied
+    about 260,000 times, signed zeros, NaN and ±inf: the card's indices and
+    value bits equal the CPU's (``lax.top_k``'s order, H2)."""
+    from repro_torch.optim.compress import int8_quantize, topk_compress
+    rng = np.random.default_rng(19)
+    D = 2**20 + 3
+    g = rng.choice(np.float32([0.0, 0.25, 0.5, 4.0]), D) \
+        * rng.choice(np.float32([-1.0, 1.0]), D)
+    g[rng.choice(D, 64)] = np.nan
+    g[rng.choice(D, 64)] = np.inf
+    g[rng.choice(D, 64)] = -np.inf
+    host = torch.from_numpy(g)
+    k = int((np.abs(g) >= 4.0).sum()) + 1000
+    for kk in (1, k, D):
+        want = topk_compress(host, kk)
+        got = topk_compress(host.to(cuda_device), kk)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu().view(torch.int32),
+                           want[1].view(torch.int32))
+    q, s = int8_quantize(host.to(cuda_device))
+    wq, ws = int8_quantize(host)
+    assert torch.equal(q.cpu(), wq) and s.item() == ws.item()

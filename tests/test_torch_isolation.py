@@ -49,7 +49,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.launch.train", "repro_torch.models.transformer",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention",
-            "repro_torch.launch.serve"} <= names
+            "repro_torch.launch.serve", "repro_torch.optim.compress",
+            "repro_torch.core.verifier",
+            "repro_torch.examples.quickstart"} <= names
 
 
 def test_trainer_without_a_card_raises():

@@ -91,9 +91,3 @@ def test_real_ppo_gradients_on_cpu():
                        res.final_params["value"]["b"])])
     assert bool(torch.isfinite(flat).all())
     assert len(res.eval_rewards) == 1 and np.isfinite(res.eval_rewards[0])
-
-
-def test_checkpointing_is_not_in_this_slice():
-    cfg = _cfg(async_trainer, TxControlConfig, ckpt_dir="ckpt", ckpt_every=2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        async_trainer.AsyncDRLTrainer(cfg, device="cpu")
