@@ -32,7 +32,12 @@ card against CPU snapshot for snapshot), ``optim/compress.py``
 (``[compress]``: top-k ties and non-finite inputs card against CPU, then
 timed at smollm-360m's flat size), and the example drivers
 (``[examples]``: the quickstart's ``olaf_combine`` demo, ``lm_train
---olaf``, ``serve_decode``). The
+--olaf``, ``serve_decode``), and ``repro_torch.distributed`` with the
+sharded vectorized simulator (``[sharded]``: the k=8 scale configuration
+on 8 switch shards held bit for bit to one device, a (2,2) mesh at k=4,
+``--sim-shards``, the hybrid's switch mesh with one ``olaf_combine``
+launch per shard, ``olaf_step_sharded`` with one ``olaf_step`` launch per
+shard; on a one-card host every shard runs on that card). The
 attention kernels are held to their plain versions in both the
 folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one, and
 timed beside SDPA. It prints each kernel's ptxas registers and spills,
@@ -1048,6 +1053,447 @@ def vecsim_phase(dev, scen) -> dict:
         peak_bytes=peak, scale_cpu_wall_s=wall_cpu, phase_s=phase_s,
         max_abs_err=max(err_w, err_c, err_s))))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the sharded vectorized simulator and distributed/sharding.py over a mesh
+# ---------------------------------------------------------------------------
+# repro's vecsim_scale switch mesh (benchmarks/bench_vecsim.py): 8 shards
+SHARDED_SHARDS = 8
+# first boundaries of the k=8 run held against one device: the first
+# deliveries reach the PS near boundary 112
+SHARDED_STEPS = 128
+SHARDED_PROFILED_STEPS = 4  # boundaries of the profiled repeat
+SHARDED_SYNC_STEPS = 8  # boundaries stepped under set_sync_debug_mode("error")
+SHARDED_DT = 2.0 ** -8  # the k=4 runs' coarse grid (128 boundaries)
+SHARDED_K4 = ["--mode", "scenario", "--topology", "fattree", "--fattree-k",
+              "4", "--sim-dim", str(VECSIM_D), "--sim-impl", "vectorized",
+              "--sim-dt", str(SHARDED_DT)]
+SHARDED_HYBRID_DEVICES = 3  # fat-tree k=4: 21 switches, 7 a shard
+
+
+def spread(n: int):
+    """``n`` mesh entries over the visible cards, round robin: all on one
+    card on a one-card host."""
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def sharded_segment(comp, grid, devs, n_steps, ring):
+    """The sharded runner over ``devs`` ((ns, nw) devices) for the first
+    ``n_steps`` boundaries, staged and with a fresh carry: ``(runner,
+    carry, ts)``."""
+    perm = vecsim._stripe_perm(comp.static.S, devs.shape[0])
+    arrays = dict(comp.arrays)
+    for k in vecsim._SWITCH_AXIS_KEYS:
+        arrays[k] = comp.arrays[k][perm]
+    home = devs[0, 0]
+    runner = vecsim._ShardedRunner(
+        comp.static, vecsim._stage(arrays, home), devs, VECSIM_WIDTH,
+        float(comp.arrays["horizon"]), ring)
+    return runner, runner.init_carry(), \
+        torch.from_numpy(grid[:n_steps]).to(home)
+
+
+def compare_carries(one: dict, split: dict, shards: list, key2_off: int):
+    """The one-device carry against the sharded one gathered to the mesh's
+    first device (original switch order): every tensor bit for bit (the
+    delivery and drop logs up to their scratch row); the transit ring by
+    its times (the ghost ring) and each shard's live rows against the one
+    ring's row in their slot. Returns the count of tensors compared."""
+    n = [0]
+
+    def eq(a, b, what):
+        require(a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a, b), f"[sharded] carry {what} differs")
+        n[0] += 1
+
+    for key in one:
+        if key in ("dlv", "drp"):
+            # each log's scratch row past its end takes every discarded
+            # write, in no set order on a card (H21): it is not compared
+            for f, v in one[key].items():
+                w = split[key][f]
+                eq(v[:-1] if v.dim() else v, w[:-1] if w.dim() else w,
+                   f"{key}.{f}")
+        elif key != "tr":
+            vecsim._tree_map(lambda a, b, k=key: eq(a, b, k), one[key],
+                             split[key])
+    eq(one["tr"]["time"], split["ghost"], "transit ring times")
+    live = 0
+    for x in shards:
+        tr = x["tr"]
+        m = torch.isfinite(tr["time"])
+        slot = (tr["key2"][m] - key2_off).long()
+        live += int(m.sum())
+        for f, v in one["tr"].items():
+            eq(tr[f][m], v[slot], f"transit ring {f}")
+    require(live == int(torch.isfinite(one["tr"]["time"]).sum()),
+            "[sharded] the local rings hold other rows than the one ring")
+    return n[0]
+
+
+def vecsim_results_equal(a, b, what, *, atol=0.0) -> float:
+    """Every ``VecSimResult`` field equal; payloads bit for bit, or within
+    ``atol`` (card against CPU). Returns the max |err| of the payloads."""
+    for f in dataclasses.fields(a.sim):
+        x, y = getattr(a.sim, f.name), getattr(b.sim, f.name)
+        if f.name == "delivered_updates":
+            x = [dataclasses.astuple(u) for u in x]
+            y = [dataclasses.astuple(u) for u in y]
+        require(x == y, f"{what}: {f.name} differs")
+    for f in ("aom", "n_steps", "forwarded", "residual", "h2d_transfers"):
+        require(getattr(a, f) == getattr(b, f), f"{what}: {f} differs")
+    require(np.array_equal(a.delivery_times, b.delivery_times)
+            and np.array_equal(a.final_counts, b.final_counts),
+            f"{what}: delivery times or final counts differ")
+    pa, pb = a.delivered_payloads.cpu(), b.delivered_payloads.cpu()
+    err = float((pa - pb).abs().max()) if pa.numel() else 0.0
+    require(torch.equal(pa, pb) if atol == 0.0 else err <= atol,
+            f"{what}: payloads differ by {err}")
+    return err
+
+
+class CombineCheck:
+    """Replaces ``ops.olaf_combine_multi`` inside a ``with`` block and holds
+    every call's result (the kernel's, on the card) to
+    ``olaf_combine_plain`` on clones of the same operands and reset mask:
+    counts exact, slots within RTOL/ATOL. ``err`` is the largest slot
+    difference, ``shapes`` the switch counts the calls saw."""
+
+    def __init__(self, what):
+        self.what, self.calls, self.err, self.shapes = what, 0, 0.0, set()
+
+    def __enter__(self):
+        self._orig = orig = ops.olaf_combine_multi
+
+        def wrapper(*a, reset=None, **kw):
+            before = [x.clone() for x in a]
+            rs = None if reset is None else reset.clone()
+            got = orig(*a, reset=reset, **kw)
+            want = olaf_combine_plain(*before[:4], before[4].to(torch.int32),
+                                      reset=rs)
+            self.calls += 1
+            self.shapes.add(a[0].shape[0])
+            what = f"{self.what}: olaf_combine call {self.calls}"
+            require(torch.equal(want[1], got[1]), f"{what}: counts differ")
+            diff = float((got[0] - want[0]).abs().max())
+            require(torch.allclose(got[0], want[0], rtol=RTOL, atol=ATOL),
+                    f"{what}: slots off by {diff}")
+            self.err = max(self.err, diff)
+            return got
+
+        ops.olaf_combine_multi = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        ops.olaf_combine_multi = self._orig
+        return False
+
+
+def hybrid_rows_equal(got, want, what, atol) -> float:
+    """Every counter and trace field of two hybrid results equal, the
+    delivered rows within ``atol``; returns the largest row difference."""
+    for f in HYBRID_COUNTERS + ("drops_by_switch",):
+        require(getattr(got, f) == getattr(want, f),
+                f"[sharded] hybrid vs the {what} run: {f} differs")
+    require(np.array_equal(got.final_counts, want.final_counts)
+            and len(got.delivered) == len(want.delivered) > 0,
+            f"[sharded] hybrid vs the {what} run: final counts or "
+            f"deliveries differ")
+    err = 0.0
+    for (t_a, u_a, p_a), (t_b, u_b, p_b) in zip(got.delivered,
+                                                want.delivered):
+        require(t_a == t_b and dataclasses.astuple(u_a)
+                == dataclasses.astuple(u_b), f"[sharded] hybrid vs the "
+                f"{what} run: delivery metadata differs")
+        err = max(err, float((p_a.cpu() - p_b.cpu()).abs().max()))
+    require(err <= atol, f"[sharded] hybrid vs the {what} run: rows differ "
+            f"by {err}")
+    return err
+
+
+def sharded_phase(dev, pre_b, b_b) -> dict:
+    """``[sharded]``: ``repro_torch.distributed`` and the sharded
+    vectorized simulator over meshes of devices (on a one-card host every
+    mesh entry is that card).
+
+    (a) ``repro``'s ``vecsim_scale`` k=8 configuration at full width on
+    the 8-way switch mesh of ``benchmarks/bench_vecsim.py``: its first
+    ``SHARDED_STEPS`` boundaries held bit for bit to the one-device runner
+    on the same segment (every tensor of the carry after the gather and the
+    inverse permutation), both timed; a profiled repeat for the device
+    events per boundary and the idle share; peak memory; then (f) a
+    sharded segment under ``set_sync_debug_mode("error")``. (b) A (2,2)
+    mesh on the fat-tree k=4 scenario (coarse grid, D = 941) against the
+    one-device card run and the same call on the CPU, and with a forced
+    local-ring and a forced width retry. (c) The scenario command with
+    ``--sim-shards 4`` against the same command without it. (d) The hybrid
+    (fat-tree k=4, windowed replay) with ``sharded=True`` over 3 mesh
+    entries: 3 ``olaf_combine`` launches per flush, equal to the one-launch
+    run. (e) ``olaf_step_sharded`` over 3 shards at the stress shape: 3
+    launches, equal to one ``olaf_step_multi`` launch, also with a
+    heterogeneous capacity vector. Returns each path's launch counts and
+    the numbers."""
+    from repro_torch.distributed import sharding
+    t_phase = time.perf_counter()
+    out = {}
+    # ---- (a) k=8 at full width on 8 switch shards --------------------------
+    cfg = vecsim_scale_cfg()
+    rows = vecsim_rows(cfg)
+    comp = vecsim.compile_scenario(cfg, dim=VECSIM_D, payload_rows=rows)
+    grid = vecsim.uniform_grid(cfg, VECSIM_DT, allow_coarse=True)
+    st = comp.static
+    mesh = sharding.vecsim_mesh(len(cfg.switches),
+                                devices=spread(SHARDED_SHARDS))
+    devs = np.asarray(mesh.devices)
+    require(mesh.shape == {"switch": SHARDED_SHARDS, "worker": 1}
+            and len(cfg.switches) == 80 and len(cfg.workers) == 1024
+            and st.D == VECSIM_D, f"[sharded] k=8 mesh {mesh.shape}")
+    log(f"[sharded] k=8 mesh {mesh.shape} on "
+        f"{[str(d) for d in devs.flat]}; S={st.S} (80 real) W={st.W} "
+        f"D={st.D}, dt=2^-11, the first {SHARDED_STEPS} of {len(grid)} "
+        f"boundaries")
+    # the one-device runner on the same segment, timed
+    runner1, carry1, ts1 = vecsim_segment(cfg, rows, dev, SHARDED_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = runner1.run(carry1, ts1)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    ring = vecsim._default_ring(comp, SHARDED_SHARDS)
+    while True:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runner, carry, ts = sharded_segment(comp, grid, devs, SHARDED_STEPS,
+                                            ring)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = runner.run(carry, ts)
+        torch.cuda.synchronize()
+        wall8 = time.perf_counter() - t0
+        counts_a = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        split = runner.gather(carry)
+        if not bool(split["ovf"]["trl"]) or ring >= st.Rt:
+            break
+        log(f"[sharded] a local transit ring of {ring} slots overflowed: "
+            f"repeating with {min(st.Rt, 2 * ring)}")
+        ring = min(st.Rt, 2 * ring)
+    require(not bool(split["ovf"]["trl"]), "[sharded] local ring overflow")
+    require(int(split["max_active"]) <= runner.U
+            and int(one["max_active"]) <= runner1.U,
+            "[sharded] the segment outgrew its burst width")
+    require(not any(counts_a.values()), f"[sharded] the sharded vecsim "
+            f"launched a kernel: {counts_a}")
+    n_cmp = compare_carries(one, split, carry["sw"], runner.key2_off)
+    n_dlv, n_sent = int(split["dlv"]["n"]), int(split["sent"])
+    require(n_sent > 0 and int(split["forwarded"]) > 0 and n_dlv > 0,
+            "[sharded] the segment sent, forwarded or delivered nothing")
+    rate1, rate8 = SHARDED_STEPS / wall1, SHARDED_STEPS / wall8
+    log(f"[sharded] k=8 segment: 8 shards {wall8:.3f} s = {rate8:.3f} "
+        f"boundaries/s, one device {wall1:.3f} s = {rate1:.3f} boundaries/s "
+        f"(x{rate1 / rate8:.2f}); local ring {ring} of Rt={st.Rt} slots; "
+        f"{n_sent} sent, {int(split['forwarded'])} forwarded, {n_dlv} "
+        f"delivered; the gathered carry equals the one-device carry bit for "
+        f"bit ({n_cmp} tensors: every counter, delivery time and row, AoM, "
+        f"the queues and residual slots, the transit ring); peak memory "
+        f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held; "
+        f"launch counts {counts_a}")
+    del one, carry1, runner1
+    # a segment unprofiled, then the same segment profiled
+    walls = []
+    for profiled in (False, True):
+        runner_p, carry_p, ts_p = sharded_segment(
+            comp, grid, devs, SHARDED_PROFILED_STEPS, ring)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            runner_p.run(carry_p, ts_p)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    kernels = device_kernels(prof)
+    busy = sum(us for _, us in kernels.values()) / 1e6
+    events = sum(n for n, _ in kernels.values())
+    idle = idle_p = per_step = None
+    if busy:
+        idle, idle_p = (100 * (1 - busy / w) for w in walls)
+        per_step = events / SHARDED_PROFILED_STEPS
+        log(f"[sharded] k=8 segment of {SHARDED_PROFILED_STEPS} boundaries "
+            f"on 8 shards: {walls[0]:.4f} s unprofiled, profiled repeat "
+            f"{walls[1]:.4f} s: device busy {busy:.4f} s in {events} device "
+            f"events ({per_step:.1f} per boundary): idle share {idle:.2f}% "
+            f"of the unprofiled wall ({idle_p:.2f}% of the profiled one)")
+    else:
+        log("[sharded] device busy: not measured (the profiler recorded no "
+            "device events)")
+    # ---- (f) a sharded segment makes no host sync ------------------------
+    runner_s, carry_s, ts_s = sharded_segment(comp, grid, devs,
+                                              SHARDED_SYNC_STEPS, ring)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner_s.run(carry_s, ts_s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[sharded] {SHARDED_SYNC_STEPS} sharded k=8 boundaries under "
+        f"set_sync_debug_mode(\"error\"): no host sync")
+    del runner_p, carry_p, runner_s, carry_s, runner, carry, split
+
+    # ---- (b) a (2,2) mesh on the fat-tree k=4 scenario ---------------------
+    cfg4 = topology.fattree_cfg(4, seed=0, spec_kw=dict(spines=1))
+    gen_times, _ = netsim.generation_schedule(cfg4)
+    rows4 = np.random.default_rng(4).normal(
+        size=(sum(len(t) for t in gen_times.values()), VECSIM_D)).astype(
+            np.float32)
+    kw = dict(dt=SHARDED_DT, allow_coarse=True, dim=VECSIM_D,
+              payload_rows=rows4)
+    four = spread(4)
+    one4 = vecsim.run_vecsim(cfg4, device=dev, **kw)
+    reset_counts()
+    t0 = time.perf_counter()
+    split4 = vecsim.run_vecsim(cfg4, mesh=(2, 2), device=four, **kw)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    counts_b = read_counts()
+    require(not any(counts_b.values()), f"[sharded] k=4 launched a kernel: "
+            f"{counts_b}")
+    # a local ring of 8 slots overflows (16 hold this run) and 1 column
+    # does: one pass retries both
+    forced = vecsim.run_vecsim(cfg4, mesh=(2, 2), device=four, rt_loc=8,
+                               width=1, **kw)
+    t0 = time.perf_counter()
+    host4 = vecsim.run_vecsim(cfg4, mesh=(2, 2), device=["cpu"] * 4, **kw)
+    wall4_cpu = time.perf_counter() - t0
+    require(len(one4.delivery_times) > 0 and one4.forwarded > 0,
+            "[sharded] the k=4 run delivered nothing")
+    require(forced.passes >= 2 and forced.ring > 8 and forced.width > 1,
+            f"[sharded] the forced retries did not run ({forced.passes} "
+            f"passes, ring {forced.ring}, width {forced.width})")
+    vecsim_results_equal(one4, split4, "[sharded] k=4 (2,2) vs one device")
+    vecsim_results_equal(one4, forced, "[sharded] k=4 forced retries")
+    err_b = vecsim_results_equal(split4, host4, "[sharded] k=4 card vs CPU",
+                                 atol=1e-6)
+    log(f"[sharded] fat-tree k=4 dt=2^-8 D={VECSIM_D} on a (2,2) mesh "
+        f"({[str(d) for d in four]}): {split4.n_steps} boundaries in "
+        f"{wall4:.3f} s (CPU mesh {wall4_cpu:.3f} s), "
+        f"{len(split4.delivery_times)} delivered; equals the one-device card "
+        f"run bit for bit and the CPU run (max |err| {err_b:.3g}); forced "
+        f"retries: {forced.passes} passes to ring {forced.ring}, width "
+        f"{forced.width}, same bits; launch counts {counts_b}")
+
+    # ---- (c) the scenario command with --sim-shards ---------------------
+    reset_counts()
+    cli = launch_train.main(SHARDED_K4 + ["--sim-shards", "4"])
+    torch.cuda.synchronize()
+    counts_c = read_counts()
+    plain = launch_train.main(SHARDED_K4)
+    cli_mesh = sharding.vecsim_mesh(4)  # what the command built
+    for f in ("queue_stats", "residual_slot_counts", "forwarded",
+              "link_dropped", "rerouted", "combined_updates", "launches",
+              "h2d_transfers", "drops_by_switch"):
+        require(getattr(cli, f) == getattr(plain, f),
+                f"[sharded] --sim-shards 4: {f} differs")
+    require(np.array_equal(cli.final_counts, plain.final_counts)
+            and len(cli.delivered) == len(plain.delivered) > 0,
+            "[sharded] --sim-shards 4: final counts or deliveries differ")
+    for (t_a, u_a, p_a), (t_b, u_b, p_b) in zip(cli.delivered,
+                                                plain.delivered):
+        require(t_a == t_b and dataclasses.astuple(u_a)
+                == dataclasses.astuple(u_b) and torch.equal(p_a, p_b),
+                "[sharded] --sim-shards 4: a delivery differs")
+    log(f"[sharded] launch.train --sim-shards 4 (mesh {cli_mesh.shape} on "
+        f"this host): {len(cli.delivered)} delivered, every counter and row "
+        f"equal to the unsharded command; launch counts {counts_c}")
+
+    # ---- (d) the hybrid's switch mesh --------------------------------------
+    hkw = dict(sim_cfg=cfg4, sharded=True, seed=0)
+    three = spread(SHARDED_HYBRID_DEVICES)
+    reset_counts()
+    with CombineCheck("[sharded] hybrid") as chk:
+        hyb3, _ = hybrid.run_hybrid_multihop(VECSIM_D, device=three, **hkw)
+        torch.cuda.synchronize()
+    counts_d = read_counts()
+    reset_counts()
+    hyb1, _ = hybrid.run_hybrid_multihop(VECSIM_D, device=dev, **hkw)
+    torch.cuda.synchronize()
+    counts_d1 = read_counts()
+    hybc, _ = hybrid.run_hybrid_multihop(
+        VECSIM_D, device=["cpu"] * SHARDED_HYBRID_DEVICES, **hkw)
+    require(counts_d["olaf_combine"] == SHARDED_HYBRID_DEVICES
+            * hyb3.launches == chk.calls > 0, f"[sharded] hybrid: {counts_d} "
+            f"combine launches ({chk.calls} calls) for {hyb3.launches} "
+            f"flushes over 3 shards")
+    require(counts_d1["olaf_combine"] == hyb1.launches,
+            "[sharded] hybrid: one launch per flush on one device")
+    per_shard = len(cfg4.switches) // SHARDED_HYBRID_DEVICES
+    require(chk.shapes == {per_shard}, f"[sharded] hybrid: switches per "
+            f"shard {chk.shapes}")
+    err_d = hybrid_rows_equal(hyb3, hyb1, "one-launch card", 1e-6)
+    err_dc = hybrid_rows_equal(hyb3, hybc, "CPU", 1e-6)
+    log(f"[sharded] hybrid fat-tree k=4 D={VECSIM_D} sharded over "
+        f"{[str(d) for d in three]}: {hyb3.launches} flushes, "
+        f"{counts_d['olaf_combine']} olaf_combine launches (one device: "
+        f"{counts_d1['olaf_combine']}), each of the {chk.calls} calls "
+        f"({per_shard} switches) held to olaf_combine_plain on clones "
+        f"(max |err| {chk.err:.3g}); {len(hyb3.delivered)} delivered, "
+        f"every counter "
+        f"and trace field equal to the one-launch card run (rows max |err| "
+        f"{err_d:.3g}) and to the same call over ['cpu'] * 3, the plain "
+        f"route (rows max |err| {err_dc:.3g})")
+
+    # ---- (e) olaf_step_sharded at the stress shape ------------------------
+    smesh = sharding.switch_mesh(3, devices=three)
+    args = (b_b.clusters, b_b.workers, b_b.gen_times, b_b.rewards,
+            b_b.payloads, b_b.thr, b_b.send)
+    hetero = torch.tensor([48, 64, 17], dtype=torch.int32, device=dev)
+    err_e = 0.0
+    for caps in (b_b.capacity, hetero):
+        reset_counts()
+        want = ops.olaf_step_multi(pre_b.clone(), *args, capacity=caps,
+                                   k=b_b.k)
+        torch.cuda.synchronize()
+        require(read_counts()["olaf_step"] == 1,
+                "[sharded] olaf_step_multi is not one launch")
+        reset_counts()
+        got = sharding.olaf_step_sharded(pre_b.clone(), *args,
+                                         capacities=caps, k=b_b.k,
+                                         mesh=smesh)
+        torch.cuda.synchronize()
+        counts_e = read_counts()
+        require(counts_e["olaf_step"] == 3, f"[sharded] olaf_step_sharded "
+                f"made {counts_e['olaf_step']} launches, not 3")
+        err_e = max(err_e, compare(want, got, "[sharded] olaf_step_sharded"))
+        if caps is hetero:
+            plain_h = olaf_step_plain(pre_b.clone(), *args[:5], b_b.k,
+                                      b_b.thr, b_b.send, hetero)
+            err_e = max(err_e, compare(plain_h, want,
+                                       "[sharded] olaf_step_multi capacities"))
+    log(f"[sharded] olaf_step_sharded S=3 Q=64 U=96 k=16 D=2^20+3 over "
+        f"{[str(d) for d in three]}: 3 launches, equals one olaf_step_multi "
+        f"launch (capacity 48, and [48, 64, 17] also against the plain "
+        f"version; max |err| {err_e:.3g})")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[sharded] phase wall {phase_s:.1f} s")
+    out.update(
+        counts={"sharded vecsim k=8": counts_a, "sharded k=4": counts_b,
+                "sharded cli": counts_c, "sharded hybrid": counts_d,
+                "sharded step": counts_e},
+        boundaries_per_s=rate8, one_device_boundaries_per_s=rate1,
+        events_per_step=per_step, idle_share=idle,
+        idle_share_profiled=idle_p, peak_bytes=peak, ring=ring,
+        step_err=err_e, combine_err=max(chk.err, err_dc),
+        combine_one_launch_err=err_d, vecsim_cpu_err=err_b,
+        phase_s=phase_s)
+    log("[sharded] json " + json.dumps(
+        {k: v for k, v in out.items() if k != "counts"}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2695,6 +3141,10 @@ def main() -> int:
     # ---- 4c'. the vectorized simulator: k=4 exact, k=8 scale ---------------
     vecsim_counts = vecsim_phase(dev, scen)
 
+    # ---- 4c''. the sharded simulator and distributed/sharding.py ----------
+    sharded = sharded_phase(dev, pre_b, b_b)
+    max_err = max(max_err, sharded["step_err"])
+
     # ---- 4d. the enqueue entry point: a stream of bursts at D = 941 -------
     reset_counts()
     st_card = queue_init(8, 941, device=dev)
@@ -2792,7 +3242,8 @@ def main() -> int:
                  serve=serve_counts, train=train["counts"],
                  **{f"serve {a}" if not a.startswith("train") else a: c
                     for a, c in families["counts"].items()},
-                 recovery=recovery["counts"], **examples["counts"])
+                 recovery=recovery["counts"], **examples["counts"],
+                 **sharded["counts"])
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -2838,7 +3289,8 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/olaf_combine.cu",
         replaces="src/repro/kernels/olaf_combine.py:95",
         launches=hybrid_counts["olaf_combine"],
-        max_abs_err=max(comb_err, fwd_err, examples["combine_err"]),
+        max_abs_err=max(comb_err, fwd_err, examples["combine_err"],
+                        sharded["combine_err"]),
         ms=t_ca[4]["ms"], plain_ms=t_ca[4]["plain_ms"],
         bound_ms=t_ca[4]["bound_ms"], bound_by=t_ca[4]["bound_by"],
         library_ms=None, library_note=no_library,

@@ -70,7 +70,9 @@ from repro_torch.core.olaf_queue import (EV_AGG, EV_DROP, EV_RESET,
 from repro_torch.core.topology import (TopologySpec, resolve_sim_cfg,
                                        spec_from_switch_cfgs)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import olaf_combine_sharded, switch_mesh
 from repro_torch.kernels import ops
+from repro_torch.kernels.olaf_combine import stage_window
 
 # Algorithm 1 class label -> device window event, through the shared table
 _EVENT_STR = {EV_DROP: "drop", EV_AGG: "agg", EV_RESET: "reset"}
@@ -161,13 +163,14 @@ class HybridResult:
 
 
 def _single_device(device):
-    """One ``torch.device`` from ``device``; a sequence names several cards,
-    which only a later slice splits the switch axis over."""
+    """One ``torch.device`` from ``device``. A list of several devices is
+    the switch mesh of ``sharded=True`` and nothing else takes one."""
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
-            raise NotImplementedError(
-                f"splitting the switch axis over {len(device)} devices is "
-                f"not ported yet (ROADMAP queue 1 item 5): pass one device")
+            raise ValueError(
+                f"a list of {len(device)} devices splits the switch axis: "
+                f"it needs sharded=True and a replay backend (the vectorized "
+                f"model takes sim_mesh)")
         device = device[0]
     return resolve_device(device)
 
@@ -177,10 +180,14 @@ class HybridMultiSwitchDataPlane:
     (default ``"cuda"``: raises without a card unless the caller passes
     ``device="cpu"``).
 
-    ``sharded=True`` follows ``repro``'s switch-mesh path on one device:
-    every flush is one :func:`~repro_torch.kernels.ops.olaf_combine_multi`
-    launch on the reset-masked counts, and a departure is a separate
-    gather-and-clear (:meth:`_drain_only`)."""
+    ``sharded=True`` follows ``repro``'s switch-mesh path: ``device`` may
+    then be a list of devices (it may repeat one), over which
+    :func:`~repro_torch.distributed.sharding.switch_mesh` splits the
+    switches; the slot buffer lives on the mesh's first device. Every flush
+    is one :func:`~repro_torch.distributed.sharding.olaf_combine_sharded`
+    over the mesh, each shard's reset mask applied in its own call (one
+    ``olaf_combine`` launch per shard on a card), and a departure is a
+    separate gather-and-clear (:meth:`_drain_only`)."""
 
     ROUTE_KINDS = frozenset({"forward", "deliver", "linkdrop",
                              "psdrop", "staledrop", "stalerequeue"})
@@ -198,9 +205,15 @@ class HybridMultiSwitchDataPlane:
                  device="cuda") -> None:
         if topology is None and switch_cfgs is None:
             raise ValueError("pass switch_cfgs or topology")
-        self.device = dev = _single_device(device)
         self.spec = topology if topology is not None \
             else spec_from_switch_cfgs(switch_cfgs)
+        self._mesh = None
+        if sharded:
+            devices = device if isinstance(device, (list, tuple)) \
+                else [device]
+            self._mesh = switch_mesh(self.spec.num_switches, devices=devices)
+            device = self._mesh.devices.flat[0]
+        self.device = dev = _single_device(device)
         self.names = list(self.spec.names)
         self.index = self.spec.index
         self.ingress = set(ingress_switches)
@@ -596,12 +609,20 @@ class HybridMultiSwitchDataPlane:
                 np.asarray([slot], np.int64),
                 drain_hop=np.asarray([-1 if hop is None else hop], np.int32))
             drained = rows[0]
+        elif self.sharded:
+            # repro's switch-mesh flush: one combine per shard, each with
+            # its slice of the reset mask; the departure follows
+            w = stage_window(dev, clusters=clusters, gate=gate,
+                             reset=reset_mask)
+            self.slots_dev, self.counts_dev = olaf_combine_sharded(
+                self.slots_dev, self.counts_dev, updates, w["clusters"],
+                w["gate"], reset=w["reset"], mesh=self._mesh)
+            if drain is not None:
+                drained = self._drain_only(*drain)
         else:
             self.slots_dev, self.counts_dev = ops.olaf_combine_window(
                 self.slots_dev, self.counts_dev, updates, clusters, gate,
                 reset_mask)
-            if drain is not None:  # the sharded path departs after landing
-                drained = self._drain_only(*drain)
         return drained
 
     def _scatter(self, staged: torch.Tensor, sel_idx: List[int],
@@ -694,9 +715,13 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
     ``sim_dt`` (vectorized only) replaces that exact grid with a uniform
     one: a float is the step (``allow_coarse``), ``"auto"`` picks it with
     :func:`~repro_torch.core.vecsim.auto_dt`; with ``sim_dt`` and no
-    ``payload_source`` the event heap never runs. ``sim_mesh`` (the
-    sharded scan) is not ported (ROADMAP queue 1 item 5) and raises.
-    ``sim_dt``/``sim_mesh`` raise ``ValueError`` with any other backend.
+    ``payload_source`` the event heap never runs. ``sim_mesh`` (vectorized
+    only) runs the sharded model over that mesh
+    (:func:`~repro_torch.core.vecsim.run_vecsim`'s ``mesh``, with
+    ``device`` for an int or tuple); ``sim_dt``/``sim_mesh`` raise
+    ``ValueError`` with any other backend. ``sharded=True`` splits the
+    replay's switches over ``device``, which may then be a list of devices
+    (:class:`HybridMultiSwitchDataPlane`).
 
     ``payload_rows`` (N, dim) are consumed in worker-generation order;
     ``payload_source(now, worker_id) -> (row, reward)`` makes each
@@ -713,15 +738,13 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
     if sim_impl != "vectorized" and (sim_dt is not None
                                      or sim_mesh is not None):
         raise ValueError("sim_dt/sim_mesh require sim_impl='vectorized'")
-    if sim_mesh is not None:
-        raise NotImplementedError(
-            "sim_mesh (the sharded vectorized simulator) is not ported yet: "
-            "it is ROADMAP queue 1 item 5; run on one device")
     if sim_impl == "event":
         batched = False
     elif sim_impl == "window":
         batched = True
-    dev = _single_device(device)
+    mesh_list = sharded and sim_impl != "vectorized" \
+        and isinstance(device, (list, tuple))
+    dev = device if mesh_list else _single_device(device)
     if sim_cfg is not None:
         cfg = sim_cfg
     elif topology is not None:
@@ -740,7 +763,7 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
             payload_rows = rng.normal(
                 size=(max(n_gen, 1), dim)).astype(np.float32)
         return _run_hybrid_vectorized(cfg, None, dim, payload_rows, [], dev,
-                                      sim_dt=sim_dt), cfg
+                                      sim_dt=sim_dt, sim_mesh=sim_mesh), cfg
     events: List[Tuple[float, str, str, Optional[Update]]] = []
     trace_cfg = dataclasses.replace(
         cfg, on_queue_event=lambda now, sw, kind, upd: events.append(
@@ -774,7 +797,8 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
                 size=(n_fresh, dim)).astype(np.float32)
     if sim_impl == "vectorized":
         return _run_hybrid_vectorized(cfg, events, dim, payload_rows,
-                                      rew_acc, dev, sim_dt=sim_dt), cfg
+                                      rew_acc, dev, sim_dt=sim_dt,
+                                      sim_mesh=sim_mesh), cfg
     plane = HybridMultiSwitchDataPlane(
         cfg.switches, {w.ingress_switch for w in cfg.workers}, dim,
         payload_rows, sharded=sharded, flush_cadence=flush_cadence,
@@ -788,8 +812,8 @@ def run_hybrid_multihop(dim: int = 256, *, seed: int = 0,
 
 
 def _run_hybrid_vectorized(cfg: SimCfg, events, dim: int, payload_rows,
-                           rewards, dev: torch.device,
-                           sim_dt=None) -> HybridResult:
+                           rewards, dev: torch.device, sim_dt=None,
+                           sim_mesh=None) -> HybridResult:
     """Consume the scenario through :func:`repro_torch.core.vecsim.
     run_vecsim` on ``dev`` instead of replaying the trace window by window:
     ``repro``'s ``_run_hybrid_vectorized``. Rows are consumed in global
@@ -799,7 +823,8 @@ def _run_hybrid_vectorized(cfg: SimCfg, events, dim: int, payload_rows,
 
     ``launches`` counts the boundaries stepped (``n_steps``; ``repro``'s
     one fused ``lax.scan`` dispatch is 1), ``h2d_transfers`` the staged
-    host-to-device copies. Delivered rows are tensors on ``dev``."""
+    host-to-device copies. Delivered rows are tensors on ``dev`` (with
+    ``sim_mesh``, on the mesh's first device)."""
     gen_rewards = None
     if rewards:
         gen_times, _ = generation_schedule(cfg)
@@ -828,7 +853,8 @@ def _run_hybrid_vectorized(cfg: SimCfg, events, dim: int, payload_rows,
               else float(sim_dt))
         grid_kw = dict(dt=dt, allow_coarse=True)
     vres = vecsim.run_vecsim(cfg, dim=dim, payload_rows=rows,
-                             gen_rewards=gen_rewards, device=dev, **grid_kw)
+                             gen_rewards=gen_rewards, mesh=sim_mesh,
+                             device=dev, **grid_kw)
     sim = vres.sim
     delivered = list(zip((float(t) for t in vres.delivery_times),
                          sim.delivered_updates,

@@ -430,13 +430,15 @@ def _burst_resolve(state: TorchQueueState, clusters, workers, gen_times,
         fh = F.gather(-2, idx.expand(*lead, 1, 2)).squeeze(-2)
         h_gt, h_rw = fh[..., 0], fh[..., 1]
 
-        swr = act & hit & (ph[..., 4] != 0) & (ph[..., 1] == w)
+        act_hit = act & hit
+        swr = act_hit & (ph[..., 4] != 0) & (ph[..., 1] == w)
         rdiff = r - h_rw
-        do_rr = act & hit & ~swr & (rdiff > reward_threshold)
-        do_rd = act & hit & ~swr & (rdiff < -reward_threshold)
-        do_agg = act & hit & ~swr & ~do_rr & ~do_rd
+        other = act_hit & ~swr
+        do_rr = other & (rdiff > reward_threshold)
+        do_rd = other & (rdiff < -reward_threshold)
+        do_agg = other & ~(do_rr | do_rd)
         full = occupied.sum(dim=-1) >= cap_count
-        do_append = act & ~hit & ~full
+        do_append = act & ~(hit | full)
 
         slot = torch.where(hit, slot_hit,
                            torch.argmax((~occupied).to(torch.uint8), dim=-1))

@@ -51,7 +51,10 @@ times from :func:`~repro_torch.core.netsim.generation_schedule`, gate draws
 from each controller's ``default_rng(seed * 7919 + worker_id)``, loss draws
 from the :func:`~repro_torch.core.netsim.link_stream_index` streams.
 
-Single device only: the sharded runner is ROADMAP queue 1 item 5.
+Over a mesh of devices, :class:`_ShardedRunner` splits the switches over
+its "switch" axis and the workers over its "worker" axis (``repro``'s
+``_make_runner_sharded``); :func:`run_vecsim`'s ``mesh`` selects it. Its
+result is the one-device result, bit for bit.
 """
 from __future__ import annotations
 
@@ -74,6 +77,8 @@ from repro_torch.core.topology import spec_from_switch_cfgs
 from repro_torch.core.txctl import (send_probability, txctl_ack, txctl_init,
                                     txctl_send)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (Mesh, all_gather, device_list,
+                                              psum, visible_devices)
 from repro_torch.kernels import ops
 
 _BIG_I32 = np.int32(1 << 30)
@@ -526,84 +531,78 @@ def _stage(arrays: Dict[str, np.ndarray], dev: torch.device
             for k, v in arrays.items()}
 
 
-class _Runner:
-    """The per-boundary step of one compiled scenario on one device.
+def _row(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[s, idx[s]]`` for every row ``s``."""
+    return x.gather(1, idx.unsqueeze(1)).squeeze(1)
 
-    ``arrs`` are the staged arrays; ``width`` is how many sorted arrival
-    columns the bursts walk (the module docstring). :meth:`step` advances
-    the carry by one grid boundary and makes no host round-trip; every
-    shape and branch is fixed by ``static``."""
 
-    def __init__(self, static: _Static, arrs: Dict[str, torch.Tensor],
-                 width: int, horizon: float):
-        self.st = st = static
-        self.arrs = arrs
-        self.horizon = float(horizon)
-        self.dev = dev = arrs["cand"].device
-        self.A = st.Rt + st.Wm
-        self.U = min(int(width), self.A)
-        self.key2_off = int(st.W * st.G)
+def _init_state(st: _Static, dev, groups: Sequence[str], *, n_rows: int,
+                ring: int, n_workers: int, n_clusters: int) -> dict:
+    """The initial state: ``repro``'s ``_init_carry``, a dict of tensors on
+    ``dev``, in three groups: ``"switch"`` (per-switch state, ``n_rows``
+    switches and a transit ring of ``ring`` slots), ``"worker"`` (per
+    worker, ``n_workers`` of them, and ``n_clusters`` AoM rows) and
+    ``"replicated"`` (the PS and ACK rings, the logs, the counters). The
+    delivery (``dlv``) and drop (``drp``) logs carry one scratch row past
+    their end (hazard H21); the drop log keeps only what the result reads
+    (``repro``'s also logs the drop time and subsumed count)."""
+    S, W, Rt = n_rows, n_workers, ring
+    C, Q, D, CC = st.C, st.Q, st.D, st.CC
+    Rp, Ra, Gc, Gd = st.Rp, st.Ra, st.Gc, st.Gd
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
 
-        def ar(n):
-            return torch.arange(n, device=dev)
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
 
-        self.aS, self.aW, self.aA = ar(st.S), ar(st.W), ar(self.A)
-        self.aQ, self.aC, self.aCC = ar(st.Q), ar(st.C), ar(st.CC)
-        self.key2_tr = (self.key2_off + ar(st.Rt).to(torch.int32)).expand(
-            st.S, st.Rt)
-        self.ones_sw = torch.ones((st.S, st.Wm), dtype=torch.int32,
-                                  device=dev)
-        self.true_sw = torch.ones((st.S, st.Wm), dtype=torch.bool,
-                                  device=dev)
-
-    # -- the carry ---------------------------------------------------------
-    def init_carry(self) -> dict:
-        """The initial state: ``repro``'s ``_init_carry``, a dict of tensors
-        on the run's device. The delivery (``dlv``) and drop (``drp``) logs
-        carry one scratch row past their end (hazard H21); the drop log
-        keeps only what the result reads (``repro``'s also logs the drop
-        time and subsumed count)."""
-        st, dev = self.st, self.dev
-        S, W, C, Q, D, CC = st.S, st.W, st.C, st.Q, st.D, st.CC
-        Rt, Rp, Ra, Gc, Gd = st.Rt, st.Rp, st.Ra, st.Gc, st.Gd
-        i32, f32 = torch.int32, torch.float32
-
-        def full(shape, value, dtype):
-            return torch.full(shape, value, dtype=dtype, device=dev)
-
+    carry = {}
+    if "switch" in groups:
         q = TorchQueueState(
             cluster=full((S, Q), -1, i32), worker=full((S, Q), -1, i32),
             seq=full((S, Q), EMPTY_SEQ, i32), gen_time=full((S, Q), 0.0, f32),
             reward=full((S, Q), -math.inf, f32),
             agg_count=full((S, Q), 0, i32),
-            replaceable=full((S, Q), False, torch.bool),
+            replaceable=full((S, Q), False, b8),
             payload=full((S, Q, D), 0.0, f32), next_seq=full((S,), 0, i32),
             n_dropped=full((S,), 0, i32), n_agg=full((S,), 0, i32),
             n_repl=full((S,), 0, i32), n_screened=full((S,), 0, i32))
-        aom0 = aom_init(0.0, device=dev)
-        tr = dict(time=full((Rt,), math.inf, f32), sched=full((Rt,), 0.0, f32),
-                  sched2=full((Rt,), 0.0, f32), dst=full((Rt,), -1, i32),
-                  rcl=full((Rt,), 0, i32), wk=full((Rt,), 0, i32),
-                  gen=full((Rt,), 0.0, f32), rw=full((Rt,), 0.0, f32),
-                  agg=full((Rt,), 0, i32), subs=full((Rt,), 0, i32),
-                  size=full((Rt,), 1.0, f32), rp=full((Rt,), True, torch.bool),
-                  pay=full((Rt, D), 0.0, f32))
-        carry = dict(
+        carry.update(
             q=q,
             rclq=full((S, Q), -1, i32), subsq=full((S, Q), 0, i32),
             sizeq=full((S, Q), 1.0, f32),
-            srv=dict(valid=full((S,), False, torch.bool),
+            srv=dict(valid=full((S,), False, b8),
                      rcl=full((S,), -1, i32), wk=full((S,), -1, i32),
                      gen=full((S,), 0.0, f32), rw=full((S,), 0.0, f32),
                      agg=full((S,), 0, i32), subs=full((S,), 0, i32),
                      size=full((S,), 1.0, f32),
                      fin=full((S,), math.inf, f32),
-                     rp=full((S,), True, torch.bool),
+                     rp=full((S,), True, b8),
                      pay=full((S, D), 0.0, f32)),
             free_t=full((S,), 0.0, f32),
             nonempty=full((S,), math.inf, f32),
             last_seen=full((S, C), -math.inf, f32),
-            tr=tr,
+            tr=dict(time=full((Rt,), math.inf, f32),
+                    sched=full((Rt,), 0.0, f32),
+                    sched2=full((Rt,), 0.0, f32), dst=full((Rt,), -1, i32),
+                    rcl=full((Rt,), 0, i32), wk=full((Rt,), 0, i32),
+                    gen=full((Rt,), 0.0, f32), rw=full((Rt,), 0.0, f32),
+                    agg=full((Rt,), 0, i32), subs=full((Rt,), 0, i32),
+                    size=full((Rt,), 1.0, f32), rp=full((Rt,), True, b8),
+                    pay=full((Rt, D), 0.0, f32)),
+            reroutes_s=full((S,), 0, i32), drops_s=full((S,), 0, i32),
+            departed=full((S,), 0, i32), rdrops=full((S,), 0, i32),
+            fctr=full((S,), 0, i32), lctr=full((S, CC + 1), 0, i32),
+            max_active=full((), 0, i32))
+    if "worker" in groups:
+        aom0 = aom_init(0.0, device=dev)
+        carry.update(
+            gptr=full((W,), 0, i32),
+            aom=TorchAoMState(**{f.name: getattr(aom0, f.name)
+                                 .expand(n_clusters).clone()
+                                 for f in dataclasses.fields(TorchAoMState)}))
+        if st.has_tx:
+            carry["tx"] = txctl_init(W, device=dev)
+    if "replicated" in groups:
+        carry.update(
             ps=dict(time=full((Rp,), math.inf, f32), rcl=full((Rp,), 0, i32),
                     wk=full((Rp,), 0, i32), gen=full((Rp,), 0.0, f32),
                     rw=full((Rp,), 0.0, f32), agg=full((Rp,), 0, i32),
@@ -611,9 +610,6 @@ class _Runner:
             ack=dict(time=full((Ra,), math.inf, f32), cl=full((Ra,), -1, i32),
                      nact=full((Ra,), 0.0, f32), qmax=full((Ra,), 1.0, f32),
                      gen=full((Ra,), 0.0, f32)),
-            aom=TorchAoMState(**{f.name: getattr(aom0, f.name).expand(C)
-                                 .clone()
-                                 for f in dataclasses.fields(TorchAoMState)}),
             dlv=dict(n=full((), 0, i32), time=full((Gc + 1,), 0.0, f32),
                      rcl=full((Gc + 1,), 0, i32), wk=full((Gc + 1,), 0, i32),
                      gen=full((Gc + 1,), 0.0, f32),
@@ -626,17 +622,175 @@ class _Runner:
             sent=full((), 0, i32), deferred=full((), 0, i32),
             link_dropped=full((), 0, i32), raw_link_dropped=full((), 0, i32),
             reroutes=full((), 0, i32), forwarded=full((), 0, i32),
-            reroutes_s=full((S,), 0, i32), drops_s=full((S,), 0, i32),
-            departed=full((S,), 0, i32), rdrops=full((S,), 0, i32),
-            fctr=full((S,), 0, i32), lctr=full((S, CC + 1), 0, i32),
-            gptr=full((W,), 0, i32), srow=full((), 0, i32),
-            max_active=full((), 0, i32),
-            ovf=dict(tr=full((), False, torch.bool),
-                     ps=full((), False, torch.bool),
-                     ack=full((), False, torch.bool)))
-        if st.has_tx:
-            carry["tx"] = txctl_init(W, device=dev)
-        return carry
+            srow=full((), 0, i32),
+            ovf=dict(tr=full((), False, b8), ps=full((), False, b8),
+                     ack=full((), False, b8)))
+    return carry
+
+
+# -- the replicated bookkeeping of a boundary, shared by both runners -------
+def _log_drops(drp, dropped, fin, rcl, gen, subs, Gd: int):
+    """Append this boundary's link drops to the drop log (in place), in
+    time order; returns the subsumed count they carried."""
+    i32 = torch.int32
+    orderd = torch.argsort(torch.where(dropped, fin, math.inf), stable=True)
+    posd = torch.argsort(orderd, stable=True)
+    widx = drp["n"] + posd
+    widx = torch.where(dropped & (widx < Gd), widx, Gd)  # H21
+    for k, v in (("rcl", rcl), ("gen", gen)):  # what the result reads
+        drp[k].index_copy_(0, widx, v)
+    drp["n"] = drp["n"] + dropped.sum(dtype=i32)
+    return torch.where(dropped, subs, 0).sum(dtype=i32)
+
+
+def _deliver(dlv, ps, t, horizon, Gc: int):
+    """Append the PS ring's rows due by ``t`` to the delivery log (in
+    place), in time order. Returns ``(due, orderp)``: the due mask and the
+    ring's time order."""
+    due = (ps["time"] <= t) & (ps["time"] <= horizon)
+    orderp = torch.argsort(torch.where(due, ps["time"], math.inf),
+                           stable=True)
+    posp = torch.argsort(orderp, stable=True)
+    didx = dlv["n"] + posp
+    didx = torch.where(due & (didx < Gc), didx, Gc)  # H21
+    for k in ("time", "rcl", "wk", "gen", "rw", "agg", "subs", "pay"):
+        dlv[k].index_copy_(0, didx, ps[k])
+    dlv["n"] = dlv["n"] + due.sum(dtype=torch.int32)
+    return due, orderp
+
+
+def _aom_block(aom, ts_b, gen_b, due_b, rcl_b, clusters):
+    """Fold the drained block, in time order, into the AoM rows of the
+    dense cluster ids ``clusters``."""
+    for i in range(ts_b.shape[0]):
+        aom = aom_update(aom, ts_b[i], gen_b[i], due_b[i] & (rcl_b[i] == clusters))
+    return aom
+
+
+def _feedback(ps_time, last_seen, window):
+    """Active clusters per switch at each PS ring row's instant, read
+    against the pre-arrival ``last_seen``: (Rp, switches) float32."""
+    age = ps_time[:, None, None] - last_seen[None, :, :]
+    return (age <= window).sum(dim=2, dtype=torch.int32).to(torch.float32)
+
+
+def _ack_rows(ps, orderp, nact, slots_f, ack_delay, gen_b, rcl_b):
+    """The ACK ring rows of the drained block: the bottleneck switch's
+    (first attaining max pressure) feedback at each delivery."""
+    pr = nact / slots_f.clamp(min=1.0).unsqueeze(0)
+    s_star = torch.argmax(pr, dim=1)
+    fb_n = _row(nact, s_star)
+    fb_q = slots_f[s_star]
+    return dict(time=(ps["time"] + ack_delay)[orderp], cl=rcl_b,
+                nact=fb_n[orderp], qmax=fb_q[orderp], gen=gen_b)
+
+
+def _ack_order(ack, t, horizon):
+    """The ACKs due by ``t`` in time order: ``(due_a, (cl, due, time,
+    nact, qmax, gen))``, the rows sorted."""
+    due_a = (ack["time"] <= t) & (ack["time"] <= horizon)
+    ordera = torch.argsort(torch.where(due_a, ack["time"], math.inf),
+                           stable=True)
+    return due_a, tuple(x[ordera] for x in (
+        ack["cl"], due_a, ack["time"], ack["nact"], ack["qmax"], ack["gen"]))
+
+
+def _ack_fold(tx, w_cluster, rows):
+    """``repro``'s ``ack_body`` scan: each sorted ACK row acknowledges its
+    cluster's workers among ``w_cluster``."""
+    a_cl, a_due, a_t, a_n, a_q, a_g = rows
+    for i in range(a_cl.shape[0]):
+        acked = (w_cluster == a_cl[i]) & a_due[i]
+        tx = txctl_ack(tx, acked, torch.where(a_due[i], a_t[i], 0.0),
+                       a_n[i], a_q[i], delivered_gen=a_g[i])
+    return tx
+
+
+def _generate(arrs, gptr0, t, tx, has_tx: bool) -> dict:
+    """The workers' next generations due by ``t``, gated by transmission
+    control: each worker's time, send/due flags, global rank, reward and
+    heap push keys, its advanced pointer and (with txctl) the state after
+    the sends."""
+    G = arrs["gen_t"].shape[1]
+    gidx = gptr0.clamp(0, G - 1).long()
+    g_t = _row(arrs["gen_t"], gidx)
+    g_due = (gptr0 < arrs["gcount"]) & (g_t <= t) & (g_t <= arrs["horizon"])
+    if has_tx:
+        p_send = send_probability(tx, g_t, arrs["delta_thr"], arrs["v_slope"])
+        g_send = g_due & (_row(arrs["gen_u"], gidx) < p_send)
+    else:
+        g_send = g_due
+    out = dict(g_t=g_t, g_due=g_due, g_send=g_send,
+               grank=_row(arrs["gen_rank"], gidx),
+               g_rw=_row(arrs["gen_rw"], gidx),
+               sch=_row(arrs["gen_sched"], gidx),
+               sch2=_row(arrs["gen_sched2"], gidx),
+               gptr=gptr0 + g_due.to(torch.int32))
+    if has_tx:
+        out["tx"] = txctl_send(tx, g_send, g_t, g_t, ack_timeout=math.inf)
+    return out
+
+
+def _send_rows(g_send, g_due, grank, srow, n_rows_tab: int):
+    """Payload rows for this boundary's sends, consumed in global send
+    order: ``(sent, deferred, row_idx (W,), new srow)``."""
+    i32 = torch.int32
+    ordw = torch.argsort(torch.where(g_send, grank, int(_BIG_I32)),
+                         stable=True)
+    posw = torch.argsort(ordw, stable=True)
+    row_idx = torch.where(g_send, torch.clamp(srow + posw, max=n_rows_tab),
+                          n_rows_tab)
+    n = g_send.sum(dtype=i32)
+    return n, (g_due & ~g_send).sum(dtype=i32), row_idx, srow + n
+
+
+class _Runner:
+    """The per-boundary step of one compiled scenario on one device.
+
+    ``arrs`` are the staged arrays; ``width`` is how many sorted arrival
+    columns the bursts walk (the module docstring). :meth:`step` advances
+    the carry by one grid boundary and makes no host round-trip; every
+    shape and branch is fixed by ``static``.
+
+    A runner may hold one block of the switches only (a switch shard of
+    :class:`_ShardedRunner`): ``n_rows`` rows whose original switch ids
+    are ``row * stride + offset`` (the stripe permutation), with a transit
+    ring of ``ring`` slots. :meth:`complete` and :meth:`arrive` are the
+    step's two per-switch phases over its rows."""
+
+    def __init__(self, static: _Static, arrs: Dict[str, torch.Tensor],
+                 width: int, horizon: float, *, n_rows: Optional[int] = None,
+                 ring: Optional[int] = None, stride: int = 1,
+                 offset: int = 0):
+        self.st = st = static
+        self.arrs = arrs
+        self.horizon = float(horizon)
+        self.dev = dev = arrs["cand"].device
+        self.S = S = st.S if n_rows is None else int(n_rows)
+        self.Rt = Rt = st.Rt if ring is None else int(ring)
+        self.A = Rt + st.Wm
+        self.U = min(int(width), self.A)
+        # FIFO pseudo-clusters advance by the one-device column count on
+        # every runner, so a switch block's queues hold the one-device ids
+        self.fifo_stride = st.Rt + st.Wm
+        self.key2_off = int(st.W * st.G)
+
+        def ar(n):
+            return torch.arange(n, device=dev)
+
+        self.aS, self.aA = ar(S), ar(self.A)
+        self.aQ, self.aC, self.aCC = ar(st.Q), ar(st.C), ar(st.CC)
+        self.gid = self.aS * stride + offset  # original ids of the rows
+        self.key2_tr = (self.key2_off + ar(Rt).to(torch.int32)).expand(S, Rt)
+        self.ones_sw = torch.ones((S, st.Wm), dtype=torch.int32, device=dev)
+        self.true_sw = torch.ones((S, st.Wm), dtype=torch.bool, device=dev)
+
+    def init_carry(self) -> dict:
+        """The initial state of every group (:func:`_init_state`)."""
+        st = self.st
+        return _init_state(st, self.dev, ("switch", "worker", "replicated"),
+                           n_rows=self.S, ring=self.Rt, n_workers=st.W,
+                           n_clusters=st.C)
 
     # -- sequential walks --------------------------------------------------
     def _aux_walk(self, cl0, occ0, subs0, rcl0, size0, nocc0, slots, evs, act,
@@ -715,27 +869,28 @@ class _Runner:
         return (qf, torch.where(oh, 0, subsq), torch.where(oh, -1, rclq),
                 torch.where(oh, 1.0, sizeq), srv)
 
-    # -- one grid boundary -------------------------------------------------
-    def step(self, carry: dict, t: torch.Tensor) -> dict:
-        """Advance ``carry`` to the boundary ``t`` (a 0-dim float32 tensor
-        on the device): ``repro``'s scan body, phase for phase."""
+    # -- the per-switch phases ---------------------------------------------
+    def depth(self, carry) -> torch.Tensor:
+        """Queue depth of each row's switch, the packet in service
+        included (the ``adaptive`` route reads its candidates')."""
+        return ((carry["q"].cluster >= 0).sum(dim=1, dtype=torch.int32)
+                + carry["srv"]["valid"].to(torch.int32))
+
+    def complete(self, carry: dict, t: torch.Tensor,
+                 depth: Optional[torch.Tensor] = None) -> dict:
+        """Phase 1 on the rows: the packets in service that finish by
+        ``t``, the next hop each takes (route, outage, loss draw) and what
+        becomes of it (``eg_del`` to the PS, ``ne_fwd`` to ``sel``,
+        ``dropped``). ``depth`` is every switch's :meth:`depth` in original
+        order (the ``adaptive`` route); None reads the rows' own, which are
+        every switch on one device."""
         st, arrs = self.st, self.arrs
-        S, W, C, CC, G = st.S, st.W, st.C, st.CC, st.G
-        NL, Gc, Gd, Wm, U = st.NL, st.Gc, st.Gd, st.Wm, self.U
-        aS = self.aS
+        C, CC, NL = st.C, st.CC, st.NL
         i32, f32 = torch.int32, torch.float32
         inf = math.inf
-        horizon = arrs["horizon"]
-        q, srv = carry["q"], carry["srv"]
-
-        def row(x, idx):  # x[s, idx[s]] for every s
-            return x.gather(1, idx.unsqueeze(1)).squeeze(1)
-
-        # ======== phase 1: service completions ===========================
+        srv = carry["srv"]
         fin = srv["fin"]
-        done = srv["valid"] & (fin <= t) & (fin <= horizon)
-        depth = ((q.cluster >= 0).sum(dim=1, dtype=i32)
-                 + srv["valid"].to(i32))
+        done = srv["valid"] & (fin <= t) & (fin <= arrs["horizon"])
         cand_valid = self.aCC.unsqueeze(0) < arrs["ccount"].unsqueeze(1)
         finb = fin[:, None, None]
         down_c = ((arrs["down_t0"][:, :CC, :] <= finb)
@@ -745,139 +900,65 @@ class _Runner:
                    & (fin[:, None] < arrs["down_t1"][:, CC, :])).any(dim=1)
         m = alive.sum(dim=1, dtype=i32)
         if st.route == "hash":
+            # a switch's own id is its original one, never its row (H25)
             h = route_hash(arrs["cl_real"][srv["rcl"].clamp(0, C - 1).long()],
-                           srv["wk"], aS)
+                           srv["wk"], self.gid)
             kth = h % m.clamp(min=1).to(torch.int64)
             csum = torch.cumsum(alive.to(i32), dim=1, dtype=i32) - 1
             selcol = torch.argmax(((csum == kth.unsqueeze(1)) & alive)
                                   .to(torch.uint8), dim=1)
         elif st.route == "adaptive":
-            dsts = arrs["cand"].clamp(0, S - 1).long()
+            depth = self.depth(carry) if depth is None else depth
+            dsts = arrs["cand"].clamp(0, st.S - 1).long()
             dd = torch.where(alive, depth[dsts].to(f32), inf)
             selcol = torch.argmin(dd, dim=1)
         else:  # static: first alive candidate
             selcol = torch.argmax(alive.to(torch.uint8), dim=1)
-        sel = row(arrs["cand"], selcol)
+        sel = _row(arrs["cand"], selcol)
         is_eg = arrs["is_eg"]
         drawcol = torch.where(is_eg, CC, selcol)
-        p = row(arrs["p_tab"], drawcol)
-        ctr = row(carry["lctr"], drawcol)
-        u = arrs["loss_u"][aS, drawcol, ctr.clamp(0, NL - 1).long()]
+        p = _row(arrs["p_tab"], drawcol)
+        ctr = _row(carry["lctr"], drawcol)
+        u = arrs["loss_u"][self.aS, drawcol, ctr.clamp(0, NL - 1).long()]
         need_draw = done & (p > 0.0) & torch.where(is_eg, ~eg_down, m > 0)
         lost_draw = need_draw & (u < p)
         lctr = carry["lctr"].scatter_add(1, drawcol.unsqueeze(1),
                                          need_draw.to(i32).unsqueeze(1))
         eg_del = is_eg & done & ~eg_down & ~lost_draw
         ne_fwd = ~is_eg & done & (m > 0) & ~lost_draw
-        dropped_now = done & ~eg_del & ~ne_fwd
-        reroute_now = ne_fwd & (sel != arrs["next_hop"])
-        raw_drop_add = torch.where(dropped_now, srv["subs"], 0).sum(dtype=i32)
-
-        orderd = torch.argsort(torch.where(dropped_now, fin, inf), stable=True)
-        posd = torch.argsort(orderd, stable=True)
-        drp = carry["drp"]
-        widx = drp["n"] + posd
-        widx = torch.where(dropped_now & (widx < Gd), widx, Gd)  # H21
-        for k in ("rcl", "gen"):  # what the unrecovered-drop count reads
-            drp[k].index_copy_(0, widx, srv[k])
-        drp["n"] = drp["n"] + dropped_now.sum(dtype=i32)
-
-        ovf = carry["ovf"]
-        arr_t = fin + arrs["prop"]
-        ps, ovf_ps, _ = _ring_insert_vec(
-            carry["ps"], ovf["ps"], eg_del,
-            dict(time=arr_t, rcl=srv["rcl"], wk=srv["wk"], gen=srv["gen"],
-                 rw=srv["rw"], agg=srv["agg"], subs=srv["subs"],
-                 pay=srv["pay"]))
-        # heap push time of this completion (its service start): decides
+        dropped = done & ~eg_del & ~ne_fwd
+        # the completion's heap push time (its service start): decides
         # same-instant ties against arrivals, and is the forwarded
         # arrival's depth-2 tie key
-        csched = fin - srv["size"] / arrs["rate"]
-        tr, ovf_tr, _ = _ring_insert_vec(
-            carry["tr"], ovf["tr"], ne_fwd,
-            dict(time=arr_t, sched=fin, sched2=csched, dst=sel,
-                 rcl=srv["rcl"], wk=srv["wk"], gen=srv["gen"], rw=srv["rw"],
-                 agg=srv["agg"], subs=srv["subs"], size=srv["size"],
-                 rp=srv["rp"], pay=srv["pay"]))
-        free_t = torch.where(done, fin, carry["free_t"])
-        srv = dict(srv, valid=srv["valid"] & ~done,
-                   fin=torch.where(done, inf, fin))
+        return dict(fin=fin, done=done, sel=sel, eg_del=eg_del, ne_fwd=ne_fwd,
+                    dropped=dropped, reroute=ne_fwd & (sel != arrs["next_hop"]),
+                    lctr=lctr, arr_t=fin + arrs["prop"],
+                    csched=fin - srv["size"] / arrs["rate"],
+                    free_t=torch.where(done, fin, carry["free_t"]),
+                    srv=dict(srv, valid=srv["valid"] & ~done,
+                             fin=torch.where(done, inf, fin)))
 
-        # ======== phase 2: PS deliveries + ACKs ==========================
-        due = (ps["time"] <= t) & (ps["time"] <= horizon)
-        orderp = torch.argsort(torch.where(due, ps["time"], inf), stable=True)
-        posp = torch.argsort(orderp, stable=True)
-        dlv = carry["dlv"]
-        didx = dlv["n"] + posp
-        didx = torch.where(due & (didx < Gc), didx, Gc)  # H21
-        for k in ("time", "rcl", "wk", "gen", "rw", "agg", "subs", "pay"):
-            dlv[k].index_copy_(0, didx, ps[k])
-        dlv["n"] = dlv["n"] + due.sum(dtype=i32)
-        ts_b, gen_b = ps["time"][orderp], ps["gen"][orderp]
-        due_b, rcl_b = due[orderp], ps["rcl"][orderp]
-        aom = carry["aom"]
-        for i in range(ts_b.shape[0]):  # the drained block, in time order
-            aom = aom_update(aom, ts_b[i], gen_b[i],
-                             due_b[i] & (rcl_b[i] == self.aC))
-        ack, ovf_ack = carry["ack"], ovf["ack"]
-        if st.has_tx:
-            # bottleneck-path feedback at each delivery instant, read
-            # against the pre-arrival last_seen
-            age = ps["time"][:, None, None] - carry["last_seen"][None, :, :]
-            nact = (age <= arrs["active_window"]).sum(dim=2, dtype=i32).to(f32)
-            pr = nact / arrs["slots_f"].clamp(min=1.0).unsqueeze(0)
-            s_star = torch.argmax(pr, dim=1)
-            fb_n = row(nact, s_star)
-            fb_q = arrs["slots_f"][s_star]
-            ack, ovf_ack, _ = _ring_insert_vec(
-                ack, ovf_ack, due_b,
-                dict(time=(ps["time"] + arrs["ack_delay"])[orderp], cl=rcl_b,
-                     nact=fb_n[orderp], qmax=fb_q[orderp], gen=gen_b))
-        ps = dict(ps, time=torch.where(due, inf, ps["time"]))
-        tx = carry.get("tx")
-        if st.has_tx:
-            due_a = (ack["time"] <= t) & (ack["time"] <= horizon)
-            ordera = torch.argsort(torch.where(due_a, ack["time"], inf),
-                                   stable=True)
-            a_cl, a_due = ack["cl"][ordera], due_a[ordera]
-            a_t, a_n = ack["time"][ordera], ack["nact"][ordera]
-            a_q, a_g = ack["qmax"][ordera], ack["gen"][ordera]
-            for i in range(a_cl.shape[0]):  # repro's ack_body scan
-                acked = (arrs["w_cluster"] == a_cl[i]) & a_due[i]
-                tx = txctl_ack(tx, acked, torch.where(a_due[i], a_t[i], 0.0),
-                               a_n[i], a_q[i], delivered_gen=a_g[i])
-            ack = dict(ack, time=torch.where(due_a, inf, ack["time"]))
-
-        # ======== phase 3: arrivals (transit + gated generations) ========
-        gptr0 = carry["gptr"]
-        gidx = gptr0.clamp(0, G - 1).long()
-        g_t = row(arrs["gen_t"], gidx)
-        g_due = (gptr0 < arrs["gcount"]) & (g_t <= t) & (g_t <= horizon)
-        if st.has_tx:
-            p_send = send_probability(tx, g_t, arrs["delta_thr"],
-                                      arrs["v_slope"])
-            g_send = g_due & (row(arrs["gen_u"], gidx) < p_send)
-        else:
-            g_send = g_due
-        sent = carry["sent"] + g_send.sum(dtype=i32)
-        deferred = carry["deferred"] + (g_due & ~g_send).sum(dtype=i32)
-        grank = row(arrs["gen_rank"], gidx)
-        ordw = torch.argsort(torch.where(g_send, grank, int(_BIG_I32)),
-                             stable=True)
-        posw = torch.argsort(ordw, stable=True)
-        n_rows_tab = arrs["rows"].shape[0] - 1
-        row_idx = torch.where(
-            g_send, torch.clamp(carry["srow"] + posw, max=n_rows_tab),
-            n_rows_tab)
-        srow = carry["srow"] + g_send.sum(dtype=i32)
-        g_rw = row(arrs["gen_rw"], gidx)
-        gptr = gptr0 + g_due.to(i32)
-        if st.has_tx:
-            tx = txctl_send(tx, g_send, g_t, g_t, ack_timeout=inf)
-
-        tr_due = (tr["time"] <= t) & (tr["time"] <= horizon)
+    def arrive(self, carry: dict, t: torch.Tensor, c: dict, tr: dict,
+               gen: dict) -> dict:
+        """Phase 3's switch side and phase 4 on the rows: the arrivals due
+        by ``t`` (the rows' ingress workers' sends and the transit ring's
+        rows bound for them) in heap order, the burst before the
+        completions (batch A), restart-at-finish, the burst after (batch
+        B), then the service starts. ``c`` is :meth:`complete`'s result,
+        ``tr`` the ring after this boundary's insertions and ``gen`` the
+        worker side over every worker (:func:`_generate`'s fields, the
+        payload ``row_idx`` and the tables ``w_cluster``, ``w_id``,
+        ``w_size``). Returns the rows' new state."""
+        st, arrs = self.st, self.arrs
+        S, W, C, Wm, U = self.S, st.W, st.C, st.Wm, self.U
+        aS = self.aS
+        i32 = torch.int32
+        inf = math.inf
+        q, srv = carry["q"], c["srv"]
+        fin, done, csched, free_t = c["fin"], c["done"], c["csched"], c["free_t"]
+        tr_due = (tr["time"] <= t) & (tr["time"] <= arrs["horizon"])
         act_tr = tr_due.unsqueeze(0) & (tr["dst"].unsqueeze(0)
-                                        == aS.unsqueeze(1))
+                                        == self.gid.unsqueeze(1))
         sww = arrs["sw_workers"]
         wv = sww.clamp(0, W - 1).long()
 
@@ -887,11 +968,14 @@ class _Runner:
         def cols(worker_part, ring_part):
             return torch.cat([worker_part, bcast(ring_part)], dim=1)
 
-        act_c = torch.cat([(sww >= 0) & g_send[wv], act_tr], dim=1)
-        time_c = cols(g_t[wv], tr["time"])
-        sch_c = cols(row(arrs["gen_sched"], gidx)[wv], tr["sched"])
-        sch2_c = cols(row(arrs["gen_sched2"], gidx)[wv], tr["sched2"])
-        key2 = torch.cat([grank[wv], self.key2_tr], dim=1)
+        act_c = torch.cat([(sww >= 0) & gen["g_send"][wv], act_tr], dim=1)
+        time_c = cols(gen["g_t"][wv], tr["time"])
+        sch_c = cols(gen["sch"][wv], tr["sched"])
+        sch2_c = cols(gen["sch2"][wv], tr["sched2"])
+        # a ring row's depth-3 tie key is its one-device ring slot: its
+        # column on one device, its ``key2`` in a shard's ring
+        key2 = torch.cat([gen["grank"][wv], bcast(tr["key2"]) if "key2" in tr
+                          else self.key2_tr], dim=1)
         # lexsort (time, sched, sched2, key2) through stable argsorts: the
         # heap drains same-instant events in push order (H2)
         o1 = torch.argsort(key2, dim=1, stable=True)
@@ -912,18 +996,18 @@ class _Runner:
         act_s = act_c.gather(1, ordU)
         time_s = time_c.gather(1, ordU)
         sch_s = sch_c.gather(1, ordU)
-        cl_s = gat(arrs["w_cluster"][wv], tr["rcl"])
-        wk_s = gat(arrs["w_id"][wv], tr["wk"])
-        gen_s = gat(g_t[wv], tr["gen"])
-        rw_s = gat(g_rw[wv], tr["rw"])
+        cl_s = gat(gen["w_cluster"][wv], tr["rcl"])
+        wk_s = gat(gen["w_id"][wv], tr["wk"])
+        gen_s = gat(gen["g_t"][wv], tr["gen"])
+        rw_s = gat(gen["g_rw"][wv], tr["rw"])
         agg_s = gat(self.ones_sw, tr["agg"])
         subs_s = gat(self.ones_sw, tr["subs"])
-        size_s = gat(arrs["w_size"][wv], tr["size"])
+        size_s = gat(gen["w_size"][wv], tr["size"])
         irp_s = gat(self.true_sw, tr["rp"])
         # payload rows of the walked columns only: a worker column reads
         # its row of the staged table, a transit column its ring row
         is_w = ordU < Wm
-        w_row = row_idx[wv.gather(1, ordU.clamp(max=Wm - 1))]
+        w_row = gen["row_idx"][wv.gather(1, ordU.clamp(max=Wm - 1))]
         pay_s = torch.where(is_w.unsqueeze(2), arrs["rows"][w_row],
                             tr["pay"][(ordU - Wm).clamp(min=0)])
         # FIFO: a unique pseudo-cluster per arrival reduces Algorithm 1 to
@@ -932,7 +1016,7 @@ class _Runner:
             arrs["is_fifo"].unsqueeze(1),
             C + carry["fctr"].unsqueeze(1) + self.aA[:U].to(i32).unsqueeze(0),
             cl_s)
-        fctr = carry["fctr"] + self.A
+        fctr = carry["fctr"] + self.fifo_stride
 
         # -- batch A: arrivals the heap processes BEFORE a completion at
         # this instant (earlier time, or equal time with earlier push)
@@ -969,18 +1053,19 @@ class _Runner:
         def sel(new, old):
             return torch.where(startA, new, old)
 
-        size_f = row(size_s, fidx)
+        size_f = _row(size_s, fidx)
         srv = dict(
-            valid=srv["valid"] | startA, rcl=sel(row(cl_s, fidx), srv["rcl"]),
-            wk=sel(row(wk_s, fidx), srv["wk"]),
-            gen=sel(row(gen_s, fidx), srv["gen"]),
-            rw=sel(row(rw_s, fidx), srv["rw"]),
-            agg=sel(row(agg_s, fidx), srv["agg"]),
-            subs=sel(row(subs_s, fidx), srv["subs"]),
+            valid=srv["valid"] | startA,
+            rcl=sel(_row(cl_s, fidx), srv["rcl"]),
+            wk=sel(_row(wk_s, fidx), srv["wk"]),
+            gen=sel(_row(gen_s, fidx), srv["gen"]),
+            rw=sel(_row(rw_s, fidx), srv["rw"]),
+            agg=sel(_row(agg_s, fidx), srv["agg"]),
+            subs=sel(_row(subs_s, fidx), srv["subs"]),
             size=sel(size_f, srv["size"]),
-            fin=sel(torch.maximum(free_t, row(time_s, fidx))
+            fin=sel(torch.maximum(free_t, _row(time_s, fidx))
                     + size_f / arrs["rate"], srv["fin"]),
-            rp=sel(row(irp_s, fidx), srv["rp"]),
+            rp=sel(_row(irp_s, fidx), srv["rp"]),
             pay=torch.where(startA.unsqueeze(1), pay_s[aS, fidx], srv["pay"]))
         # the loaded row was appended-then-locked: it takes a seq number
         q = dataclasses.replace(q, next_seq=q.next_seq + startA.to(i32))
@@ -997,47 +1082,428 @@ class _Runner:
         subsq, rclq, sizeq, first_app, rdrop = self._aux_walk(
             cl_pre, occ_pre, subsq0, rclq0, sizeq0, pre_cnt, slots_a,
             events_a, act_B, eff_cl, cl_s, time_s, subs_s, size_s)
-        rdrops = carry["rdrops"] + rdropA + rdrop
         nonempty = torch.where((pre_cnt == 0) & torch.isfinite(first_app),
                                first_app, nonemptyA)
         ls_upd = torch.where(
             act_s.unsqueeze(2) & (cl_s.unsqueeze(2) == self.aC.view(1, 1, C)),
             time_s.unsqueeze(2), -inf).amax(dim=1)
-        last_seen = torch.maximum(carry["last_seen"], ls_upd)
-        tr = dict(tr, time=torch.where(tr_due, inf, tr["time"]))
 
         # ======== phase 4: service starts ================================
         qf, subsq, rclq, sizeq, srv = self._try_start(
             q, subsq, rclq, sizeq, srv, free_t, nonempty)
-
-        new = dict(
-            carry, q=qf, rclq=rclq, subsq=subsq, sizeq=sizeq, srv=srv,
-            free_t=free_t, nonempty=nonempty, last_seen=last_seen, tr=tr,
-            ps=ps, ack=ack, aom=aom, dlv=dlv, drp=drp, sent=sent,
-            deferred=deferred,
-            link_dropped=carry["link_dropped"] + dropped_now.sum(dtype=i32),
-            raw_link_dropped=carry["raw_link_dropped"] + raw_drop_add,
-            reroutes=carry["reroutes"] + reroute_now.sum(dtype=i32),
-            forwarded=carry["forwarded"] + ne_fwd.sum(dtype=i32),
-            reroutes_s=carry["reroutes_s"] + reroute_now.to(i32),
-            drops_s=carry["drops_s"] + dropped_now.to(i32),
+        return dict(
+            q=qf, rclq=rclq, subsq=subsq, sizeq=sizeq, srv=srv, free_t=free_t,
+            nonempty=nonempty,
+            last_seen=torch.maximum(carry["last_seen"], ls_upd),
+            tr=dict(tr, time=torch.where(tr_due, inf, tr["time"])),
+            reroutes_s=carry["reroutes_s"] + c["reroute"].to(i32),
+            drops_s=carry["drops_s"] + c["dropped"].to(i32),
             departed=carry["departed"] + done.to(i32),
-            rdrops=rdrops, fctr=fctr, lctr=lctr, gptr=gptr, srow=srow,
-            max_active=max_active,
+            rdrops=carry["rdrops"] + rdropA + rdrop, fctr=fctr,
+            lctr=c["lctr"], max_active=max_active)
+
+    # -- one grid boundary -------------------------------------------------
+    def step(self, carry: dict, t: torch.Tensor) -> dict:
+        """Advance ``carry`` to the boundary ``t`` (a 0-dim float32 tensor
+        on the device): ``repro``'s scan body, phase for phase."""
+        st, arrs = self.st, self.arrs
+        i32 = torch.int32
+        inf = math.inf
+        horizon = arrs["horizon"]
+        srv = carry["srv"]  # the rows leaving keep these fields
+
+        # ======== phase 1: service completions ===========================
+        c = self.complete(carry, t)
+        drp = carry["drp"]
+        raw_drop_add = _log_drops(drp, c["dropped"], c["fin"], srv["rcl"],
+                                  srv["gen"], srv["subs"], st.Gd)
+        ovf = carry["ovf"]
+        ps, ovf_ps, _ = _ring_insert_vec(
+            carry["ps"], ovf["ps"], c["eg_del"],
+            dict(time=c["arr_t"], rcl=srv["rcl"], wk=srv["wk"],
+                 gen=srv["gen"], rw=srv["rw"], agg=srv["agg"],
+                 subs=srv["subs"], pay=srv["pay"]))
+        tr, ovf_tr, _ = _ring_insert_vec(
+            carry["tr"], ovf["tr"], c["ne_fwd"],
+            dict(time=c["arr_t"], sched=c["fin"], sched2=c["csched"],
+                 dst=c["sel"], rcl=srv["rcl"], wk=srv["wk"], gen=srv["gen"],
+                 rw=srv["rw"], agg=srv["agg"], subs=srv["subs"],
+                 size=srv["size"], rp=srv["rp"], pay=srv["pay"]))
+
+        # ======== phase 2: PS deliveries + ACKs ==========================
+        dlv = carry["dlv"]
+        due, orderp = _deliver(dlv, ps, t, horizon, st.Gc)
+        ts_b, gen_b = ps["time"][orderp], ps["gen"][orderp]
+        due_b, rcl_b = due[orderp], ps["rcl"][orderp]
+        aom = _aom_block(carry["aom"], ts_b, gen_b, due_b, rcl_b, self.aC)
+        ack, ovf_ack = carry["ack"], ovf["ack"]
+        if st.has_tx:
+            nact = _feedback(ps["time"], carry["last_seen"],
+                             arrs["active_window"])
+            ack, ovf_ack, _ = _ring_insert_vec(
+                ack, ovf_ack, due_b,
+                _ack_rows(ps, orderp, nact, arrs["slots_f"],
+                          arrs["ack_delay"], gen_b, rcl_b))
+        ps = dict(ps, time=torch.where(due, inf, ps["time"]))
+        tx = carry.get("tx")
+        if st.has_tx:
+            due_a, rows = _ack_order(ack, t, horizon)
+            tx = _ack_fold(tx, arrs["w_cluster"], rows)
+            ack = dict(ack, time=torch.where(due_a, inf, ack["time"]))
+
+        # ======== phase 3: arrivals (transit + gated generations) ========
+        g = _generate(arrs, carry["gptr"], t, tx, st.has_tx)
+        sent, deferred, row_idx, srow = _send_rows(
+            g["g_send"], g["g_due"], g["grank"], carry["srow"],
+            arrs["rows"].shape[0] - 1)
+        new_sw = self.arrive(carry, t, c, tr, dict(
+            g, row_idx=row_idx, w_cluster=arrs["w_cluster"],
+            w_id=arrs["w_id"], w_size=arrs["w_size"]))
+        new = dict(
+            carry, **new_sw, ps=ps, ack=ack, aom=aom, dlv=dlv, drp=drp,
+            sent=carry["sent"] + sent, deferred=carry["deferred"] + deferred,
+            link_dropped=carry["link_dropped"] + c["dropped"].sum(dtype=i32),
+            raw_link_dropped=carry["raw_link_dropped"] + raw_drop_add,
+            reroutes=carry["reroutes"] + c["reroute"].sum(dtype=i32),
+            forwarded=carry["forwarded"] + c["ne_fwd"].sum(dtype=i32),
+            gptr=g["gptr"], srow=srow,
             ovf=dict(tr=ovf_tr, ps=ovf_ps, ack=ovf_ack))
         if st.has_tx:
-            new["tx"] = tx
+            new["tx"] = g["tx"]
         return new
 
     def run(self, carry: dict, ts: torch.Tensor) -> dict:
         """One :meth:`step` per boundary of ``ts`` (float32 on the device),
         then the per-cluster time-average AoM (``aom_avg``). No host
-        round-trip."""
-        with torch.no_grad():
+        round-trip. The loop runs under ``torch.inference_mode`` (no
+        autograd bookkeeping per op), so the carry returned holds inference
+        tensors: read, copy or step them, but do not update them in place
+        outside the mode (H27)."""
+        with torch.inference_mode():
             for k in range(ts.shape[0]):
                 carry = self.step(carry, ts[k])
             carry["aom_avg"] = aom_average(carry["aom"], self.horizon)
         return carry
+
+
+# ---------------------------------------------------------------------------
+# The sharded step: per-switch state over the "switch" axis of a mesh,
+# workers / txctl / AoM over its "worker" axis
+# ---------------------------------------------------------------------------
+# staged-array axes: leading switch axis (sharded, stripe-permuted), leading
+# worker axis (sharded contiguously), everything else replicated
+_SWITCH_AXIS_KEYS = ("cand", "ccount", "next_hop", "is_eg", "is_fifo",
+                     "slots", "slots_f", "rate", "prop", "rthr", "p_tab",
+                     "down_t0", "down_t1", "loss_u", "sw_workers")
+_WORKER_AXIS_KEYS = ("gen_t", "gen_sched", "gen_sched2", "gen_rank", "gen_u",
+                     "gen_rw", "gcount", "w_cluster", "w_id", "w_size")
+# the carry's per-switch and per-worker groups (the rest is replicated)
+_SWITCH_STATE = ("q", "rclq", "subsq", "sizeq", "srv", "free_t", "nonempty",
+                 "last_seen", "reroutes_s", "drops_s", "departed", "rdrops",
+                 "fctr", "lctr")
+_WORKER_STATE = ("gptr", "tx", "aom")
+
+
+def _stripe_perm(S: int, ns: int) -> np.ndarray:
+    """Stripe permutation: shard ``d`` holds original switches ``d, d+ns,
+    d+2*ns, ...`` so a fat-tree's contiguous edge / agg / core layers
+    spread evenly over the shards. ``perm[d*S_loc + i] = i*ns + d`` maps
+    shard-major position to original switch id."""
+    return (np.arange(S // ns)[None, :] * ns
+            + np.arange(ns)[:, None]).reshape(S)
+
+
+def _unstripe(x: torch.Tensor, ns: int, dim: int) -> torch.Tensor:
+    """A shard-major gathered switch axis ``dim`` put back in original
+    switch order (the stripe permutation's inverse: a reshape and a
+    transpose)."""
+    if ns == 1:
+        return x
+    shape = x.shape
+    S = shape[dim]
+    return x.reshape(shape[:dim] + (ns, S // ns) + shape[dim + 1:]) \
+        .transpose(dim, dim + 1).reshape(shape)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of matching dicts / dataclasses."""
+    x = trees[0]
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in x}
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _tree_map(fn, *(getattr(t, f.name)
+                                                  for t in trees))
+                          for f in dataclasses.fields(x)})
+    return fn(*trees)
+
+
+class _ShardedRunner:
+    """The sharded step over an ``(ns, nw)`` ("switch", "worker") mesh of
+    devices: ``repro``'s ``_make_runner_sharded`` (its ``shard_map`` body),
+    one grid boundary per :meth:`step`, bitwise the one-device runner.
+
+    * Switch ``s`` lives on switch shard ``s % ns`` (the stripe
+      permutation, ``_stripe_perm``), as row ``s // ns``: its queues,
+      service register, loss counters and ``last_seen``, each shard a
+      :class:`_Runner` over its rows that steps :meth:`_Runner.complete`
+      and :meth:`_Runner.arrive` on its device. Per boundary only the
+      forwarding frontier (at most one completed packet per switch) is
+      gathered, in original switch order.
+    * Workers split contiguously over ``nw`` worker shards: generation
+      pointers, txctl state and AoM rows. Their per-boundary gather is
+      four float32 and three int32 rows of width W.
+    * A transit row lands in its destination shard's local ring (``ring``
+      slots), so each shard sorts ``ring + Wm`` arrival columns, not ``Rt
+      + Wm``. A replicated ghost ring of arrival times replays the one
+      device ring's first-free slot assignment; each row carries its ghost
+      slot as ``key2``, the depth-3 tie key, so every sort matches the one
+      device run. A row that does not fit its local ring sets ``trl``
+      (the result is then discarded and the run repeated with a wider
+      ring, :func:`run_vecsim`); it is never dropped silently.
+
+    ``repro`` computes each switch block on every device of its mesh row,
+    each worker block on every device of its column, and the replicated
+    bookkeeping (PS and ACK rings, the delivery and drop logs, the
+    counters, the ghost ring) on every device. Those replicas compute the
+    same function of the same inputs, so here each is computed once per
+    boundary: a switch block on its row's first device, a worker block on
+    its column's first, the bookkeeping on the mesh's first (``home``),
+    and a result is copied to each device that reads it (no copy at all
+    where that is the same device: the readers never write it). Each
+    ``lax.all_gather``/``lax.psum`` becomes
+    :func:`~repro_torch.distributed.sharding.all_gather`/``psum``, which
+    always make fresh tensors. The carry is ``dict(sw=[...], wk=[...],
+    rep={...})``: one dict per switch shard, per worker shard, and the
+    replicated state."""
+
+    def __init__(self, static: _Static, arrs: Dict[str, torch.Tensor],
+                 devices: np.ndarray, width: int, horizon: float, ring: int):
+        self.st = st = static
+        ns, nw = devices.shape
+        self.ns, self.nw, self.ring = ns, nw, int(ring)
+        self.home = home = devices[0, 0]
+        self.horizon = float(horizon)
+        self.key2_off = int(st.W * st.G)
+        S_loc, W_loc, C_loc = st.S // ns, st.W // nw, st.C // nw
+        rep = [k for k in arrs
+               if k not in _SWITCH_AXIS_KEYS and k not in _WORKER_AXIS_KEYS]
+        self.arrs = {k: arrs[k] for k in rep}
+        # the feedback reads every switch's slot count in original order
+        self.slots_f = _unstripe(arrs["slots_f"], ns, 0)
+        self.shards = []
+        for si in range(ns):
+            d = devices[si, 0]
+            a = {k: arrs[k][si * S_loc:(si + 1) * S_loc].to(d)
+                 for k in _SWITCH_AXIS_KEYS}
+            # repro gathers the worker tables once; here they are whole
+            a.update({k: arrs[k].to(d) for k in rep + ["w_cluster", "w_id",
+                                                         "w_size"]})
+            self.shards.append(_Runner(st, a, width, horizon, n_rows=S_loc,
+                                       ring=ring, stride=ns, offset=si))
+        self.U = self.shards[0].U
+        self.workers = []  # (device, arrays, dense cluster ids of its AoM rows)
+        for wi in range(nw):
+            d = devices[0, wi]
+            a = {k: arrs[k][wi * W_loc:(wi + 1) * W_loc].to(d)
+                 for k in _WORKER_AXIS_KEYS}
+            a.update({k: arrs[k].to(d) for k in ("horizon", "delta_thr",
+                                                 "v_slope")})
+            self.workers.append((d, a, torch.arange(
+                wi * C_loc, (wi + 1) * C_loc, device=d)))
+        self.devices = sorted({home, *(s.dev for s in self.shards),
+                               *(w[0] for w in self.workers)}, key=str)
+        self._W_loc, self._C_loc = W_loc, C_loc
+
+    def init_carry(self) -> dict:
+        st, i32 = self.st, torch.int32
+        sw = []
+        for s in self.shards:
+            c = _init_state(st, s.dev, ("switch",), n_rows=s.S, ring=s.Rt,
+                            n_workers=0, n_clusters=0)
+            c["tr"]["key2"] = torch.zeros((s.Rt,), dtype=i32, device=s.dev)
+            c["trl"] = torch.zeros((), dtype=torch.bool, device=s.dev)
+            sw.append(c)
+        wk = [_init_state(st, d, ("worker",), n_rows=0, ring=0,
+                          n_workers=self._W_loc, n_clusters=self._C_loc)
+              for d, _, _ in self.workers]
+        rep = _init_state(st, self.home, ("replicated",), n_rows=0, ring=0,
+                          n_workers=0, n_clusters=0)
+        rep["ghost"] = torch.full((st.Rt,), math.inf, dtype=torch.float32,
+                                  device=self.home)
+        return dict(sw=sw, wk=wk, rep=rep)
+
+    def _gather_sw(self, parts, dim: int) -> torch.Tensor:
+        """A gather over "switch", on ``home``, in original switch order."""
+        return _unstripe(all_gather(parts, dim, device=self.home), self.ns,
+                         dim)
+
+    def _gather_wk(self, parts, dim: int) -> torch.Tensor:
+        return all_gather(parts, dim, device=self.home)
+
+    def step(self, carry: dict, t: torch.Tensor) -> dict:
+        """Advance ``carry`` to the boundary ``t`` (0-dim float32 on
+        ``home``): ``repro``'s sharded scan body, phase for phase, each
+        shard's part run in turn. No host round-trip."""
+        st, arrs = self.st, self.arrs
+        ns, home = self.ns, self.home
+        i32 = torch.int32
+        inf = math.inf
+        horizon = arrs["horizon"]
+        sw, wk, rep = carry["sw"], carry["wk"], carry["rep"]
+        t_at = {d: t.to(d) for d in self.devices}
+
+        # ======== phase 1: service completions, each switch shard ========
+        depth = None
+        if st.route == "adaptive":
+            depth = self._gather_sw([s.depth(x) for s, x in
+                                     zip(self.shards, sw)], 0)
+        comp = [s.complete(x, t_at[s.dev],
+                           None if depth is None else depth.to(s.dev))
+                for s, x in zip(self.shards, sw)]
+        # -- the forwarding frontier, gathered in original switch order so
+        # every replicated decision below is the one device's
+        fr_f = self._gather_sw([torch.stack(
+            [c["arr_t"], c["fin"], c["csched"], x["srv"]["gen"],
+             x["srv"]["rw"], x["srv"]["size"]]) for c, x in zip(comp, sw)], 1)
+        fr_i = self._gather_sw([torch.stack(
+            [c["sel"], x["srv"]["rcl"], x["srv"]["wk"], x["srv"]["agg"],
+             x["srv"]["subs"]]) for c, x in zip(comp, sw)], 1)
+        fr_b = self._gather_sw([torch.stack(
+            [c["eg_del"], c["ne_fwd"], c["dropped"], c["reroute"],
+             x["srv"]["rp"]]) for c, x in zip(comp, sw)], 1)
+        pay_g = self._gather_sw([x["srv"]["pay"] for x in sw], 0)
+        time_g, fin_g, csched_g, gen_g, rw_g, size_g = fr_f
+        sel_g, rcl_g, wk_g, agg_g, subs_g = fr_i
+        egdel_g, nefwd_g, drop_g, rrt_g, rp_g = fr_b
+
+        drp = rep["drp"]
+        raw_drop_add = _log_drops(drp, drop_g, fin_g, rcl_g, gen_g, subs_g,
+                                  st.Gd)
+        ovf = rep["ovf"]
+        ps, ovf_ps, _ = _ring_insert_vec(
+            rep["ps"], ovf["ps"], egdel_g,
+            dict(time=time_g, rcl=rcl_g, wk=wk_g, gen=gen_g, rw=rw_g,
+                 agg=agg_g, subs=subs_g, pay=pay_g))
+        # ghost transit ring: the one-device ring's times and slots; the
+        # slot a row takes is its key2 in whichever ring it lands
+        ghost, ovf_tr, slot_g = _ring_insert_vec(
+            dict(time=rep["ghost"]), ovf["tr"], nefwd_g, dict(time=time_g))
+        mine_g = torch.where(nefwd_g, sel_g % ns, -1)  # destination shard
+        key2_g = self.key2_off + slot_g.to(i32)
+        rings = []
+        for si, (s, x) in enumerate(zip(self.shards, sw)):
+            d = s.dev
+            f, i_, k2 = fr_f.to(d), fr_i.to(d), key2_g.to(d)
+            rows = dict(time=f[0], sched=f[1], sched2=f[2], dst=i_[0],
+                        rcl=i_[1], wk=i_[2], gen=f[3], rw=f[4], agg=i_[3],
+                        subs=i_[4], size=f[5], rp=fr_b[4].to(d), key2=k2,
+                        pay=pay_g.to(d))
+            rings.append(_ring_insert_vec(x["tr"], x["trl"],
+                                          mine_g.to(d) == si, rows)[:2])
+
+        # ======== phase 2: PS deliveries (replicated), AoM per worker shard
+        dlv = rep["dlv"]
+        due, orderp = _deliver(dlv, ps, t, horizon, st.Gc)
+        ts_b, gen_b = ps["time"][orderp], ps["gen"][orderp]
+        due_b, rcl_b = due[orderp], ps["rcl"][orderp]
+        aoms = [_aom_block(x["aom"], ts_b.to(d), gen_b.to(d), due_b.to(d),
+                           rcl_b.to(d), cl)
+                for (d, _, cl), x in zip(self.workers, wk)]
+        ack, ovf_ack = rep["ack"], ovf["ack"]
+        if st.has_tx:
+            nact = self._gather_sw([_feedback(
+                ps["time"].to(s.dev), x["last_seen"],
+                s.arrs["active_window"]) for s, x in zip(self.shards, sw)], 1)
+            ack, ovf_ack, _ = _ring_insert_vec(
+                ack, ovf_ack, due_b,
+                _ack_rows(ps, orderp, nact, self.slots_f, arrs["ack_delay"],
+                          gen_b, rcl_b))
+        ps = dict(ps, time=torch.where(due, inf, ps["time"]))
+        txs = [x.get("tx") for x in wk]
+        if st.has_tx:
+            due_a, arows = _ack_order(ack, t, horizon)
+            txs = [_ack_fold(tx, a["w_cluster"], [r.to(d) for r in arows])
+                   for (d, a, _), tx in zip(self.workers, txs)]
+            ack = dict(ack, time=torch.where(due_a, inf, ack["time"]))
+
+        # ======== phase 3: arrivals ======================================
+        # worker side: each worker shard gates its generations, then one
+        # gather of the frontier rows (never the (W, G) tables)
+        gens = [_generate(a, x["gptr"], t_at[d], tx, st.has_tx)
+                for (d, a, _), x, tx in zip(self.workers, wk, txs)]
+        wk_f32 = self._gather_wk([torch.stack(
+            [g["g_t"], g["g_rw"], g["sch"], g["sch2"]]) for g in gens], 1)
+        wk_i32 = self._gather_wk([torch.stack(
+            [g["g_send"].to(i32), g["g_due"].to(i32), g["grank"]])
+            for g in gens], 1)
+        g_send_f, g_due_f = wk_i32[0].bool(), wk_i32[1].bool()
+        sent, deferred, row_idx, srow = _send_rows(
+            g_send_f, g_due_f, wk_i32[2], rep["srow"],
+            arrs["rows"].shape[0] - 1)
+        # switch side: each shard's local ring and ingress rows
+        new_sw = []
+        for s, x, c, (tr, trl) in zip(self.shards, sw, comp, rings):
+            d = s.dev
+            f, i_ = wk_f32.to(d), wk_i32.to(d)
+            gen = dict(g_t=f[0], g_rw=f[1], sch=f[2], sch2=f[3],
+                       g_send=g_send_f.to(d), grank=i_[2],
+                       row_idx=row_idx.to(d), w_cluster=s.arrs["w_cluster"],
+                       w_id=s.arrs["w_id"], w_size=s.arrs["w_size"])
+            new_sw.append(dict(s.arrive(x, t_at[d], c, tr, gen), trl=trl))
+        # the ghost ring frees the rows the local rings free: the one-device
+        # clear condition on the mirrored times
+        gh = ghost["time"]
+        gh = torch.where((gh <= t) & (gh <= horizon), inf, gh)
+        new_wk = []
+        for x, g, aom in zip(wk, gens, aoms):
+            new_wk.append(dict(x, gptr=g["gptr"], aom=aom))
+            if st.has_tx:
+                new_wk[-1]["tx"] = g["tx"]
+        new_rep = dict(
+            rep, ps=ps, ack=ack, dlv=dlv, drp=drp, ghost=gh,
+            sent=rep["sent"] + sent, deferred=rep["deferred"] + deferred,
+            link_dropped=rep["link_dropped"] + drop_g.sum(dtype=i32),
+            raw_link_dropped=rep["raw_link_dropped"] + raw_drop_add,
+            reroutes=rep["reroutes"] + rrt_g.sum(dtype=i32),
+            forwarded=rep["forwarded"] + nefwd_g.sum(dtype=i32), srow=srow,
+            ovf=dict(tr=ovf_tr, ps=ovf_ps, ack=ovf_ack))
+        return dict(sw=new_sw, wk=new_wk, rep=new_rep)
+
+    def run(self, carry: dict, ts: torch.Tensor) -> dict:
+        """One :meth:`step` per boundary of ``ts`` (float32 on ``home``).
+        No host round-trip; under ``torch.inference_mode``, as
+        :meth:`_Runner.run` (H27)."""
+        with torch.inference_mode():
+            for k in range(ts.shape[0]):
+                carry = self.step(carry, ts[k])
+        return carry
+
+    def gather(self, carry: dict) -> dict:
+        """The carry in the one-device runner's layout on ``home``: the
+        switch blocks gathered in original switch order, the worker blocks
+        gathered, ``max_active`` the largest over the shards, ``ovf.trl``
+        whether any local ring overflowed (an exact int32 ``psum``), and
+        ``aom_avg``. The transit ring is not gathered (the local rings lay
+        its rows out otherwise; ``rep["ghost"]`` holds its times). Fresh
+        tensors throughout: later steps of ``carry`` cannot reach them."""
+        sw, wk, rep = carry["sw"], carry["wk"], carry["rep"]
+        with torch.no_grad():
+            out = dict(rep)
+            for key in _SWITCH_STATE:
+                out[key] = _tree_map(lambda *p: self._gather_sw(p, 0),
+                                     *(x[key] for x in sw))
+            for key in _WORKER_STATE:
+                if key in wk[0]:
+                    out[key] = _tree_map(lambda *p: self._gather_wk(p, 0),
+                                         *(x[key] for x in wk))
+            out["max_active"] = torch.stack(
+                [x["max_active"].to(self.home) for x in sw]).max()
+            out["ovf"] = dict(rep["ovf"], trl=psum(
+                [x["trl"] for x in sw], device=self.home) > 0)
+            out["aom_avg"] = aom_average(out["aom"], self.horizon)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -1059,7 +1525,8 @@ class VecSimResult:
     final_counts: np.ndarray         # (S_real, Q) residual per-slot agg
     residual: Dict[str, int]         # per-switch queue + in-service packets
     width: int = 0                   # burst columns walked by the kept run
-    passes: int = 1                  # runs made (> 1: the width grew)
+    passes: int = 1                  # runs made (> 1: the width or ring grew)
+    ring: int = 0                    # a shard's transit-ring slots (sharded)
 
 
 def default_width(static: _Static) -> int:
@@ -1085,13 +1552,14 @@ def _lookup(carry: dict, key: str) -> torch.Tensor:
     return obj
 
 
-def _fetch(carry: dict) -> Dict[str, np.ndarray]:
-    """The carry's result fields (:data:`_FETCH`) in ONE device-to-host
-    copy: their bytes packed into one buffer on the device."""
-    ts = [_lookup(carry, k).contiguous().reshape(-1) for k in _FETCH]
+def _fetch(carry: dict, keys: Sequence[str] = _FETCH
+           ) -> Dict[str, np.ndarray]:
+    """The carry's result fields (``keys``) in ONE device-to-host copy:
+    their bytes packed into one buffer on the device."""
+    ts = [_lookup(carry, k).contiguous().reshape(-1) for k in keys]
     buf = torch.cat([t.view(torch.uint8) for t in ts]).cpu().numpy()
     out, off = {}, 0
-    for key, t in zip(_FETCH, ts):
+    for key, t in zip(keys, ts):
         nb = t.numel() * t.element_size()
         shape = tuple(_lookup(carry, key).shape)
         dtype = np.dtype(str(t.dtype).replace("torch.", ""))
@@ -1121,14 +1589,24 @@ def run_vecsim(cfg: SimCfg, *, dt: Optional[float] = None,
     ``width`` (default :func:`default_width`) is how many sorted arrival
     columns the bursts walk. If some switch had more active arrivals in one
     step, the run is repeated with a width that holds them, so the result
-    never depends on it. ``mesh`` and ``rt_loc`` belong to the sharded
-    runner, which is not ported (ROADMAP queue 1 item 5), and raise.
-    """
-    if mesh is not None or rt_loc is not None:
-        raise NotImplementedError(
-            "the sharded vectorized simulator (mesh / rt_loc) is not ported "
-            "yet: it is ROADMAP queue 1 item 5; run on one device")
-    dev = resolve_device(device)
+    never depends on it.
+
+    ``mesh`` selects the sharded runner (:class:`_ShardedRunner`): an int
+    (switch shards), an ``(switch_shards, worker_shards)`` tuple, or a
+    :class:`~repro_torch.distributed.sharding.Mesh` with a "switch" (and
+    optionally "worker") axis, e.g. ``distributed.sharding.vecsim_mesh()``.
+    A mesh object brings its devices; an int or tuple takes the first of
+    ``device`` when it is a list (which may repeat a device), else of the
+    visible devices of its type (every card for ``"cuda"``, the one CPU
+    for ``"cpu"``), and raises ``ValueError`` when they are too few, as
+    ``repro`` does. The results gather on the mesh's first device. The
+    sharded run is bitwise the one-device run. ``rt_loc`` overrides a
+    shard's transit-ring width (ignored without a mesh, as in ``repro``);
+    when a local ring overflows, the run is repeated with it doubled (at
+    most ``Rt``), in the same loop as the width's, so neither changes the
+    result."""
+    devs = None if mesh is None else _mesh_devices(mesh, device)
+    dev = resolve_device(device) if devs is None else devs[0, 0]
     comp = compile_scenario(cfg, dim=dim, payload_rows=payload_rows,
                             gen_rewards=gen_rewards, pad_pow2=pad_pow2)
     if grid is None:
@@ -1137,23 +1615,104 @@ def run_vecsim(cfg: SimCfg, *, dt: Optional[float] = None,
                                 bucket=grid_bucket)
         else:
             grid, _ = oracle_event_times(cfg, bucket=grid_bucket)
+    st = comp.static
+    width = default_width(st) if width is None else int(width)
+    horizon = float(comp.arrays["horizon"])
+    keys = _FETCH
+    if devs is not None:
+        ns, nw = devs.shape
+        if st.S % ns or st.W % nw or st.C % nw:
+            raise ValueError(
+                f"padded dims (S={st.S}, W={st.W}, C={st.C}) are not "
+                f"divisible by the mesh ({ns} switch x {nw} worker shards)")
+        perm = _stripe_perm(st.S, ns)
+        arrays = dict(comp.arrays)
+        for k in _SWITCH_AXIS_KEYS:
+            arrays[k] = comp.arrays[k][perm]
+        ring = _default_ring(comp, ns) if rt_loc is None else int(rt_loc)
+        keys = _FETCH + ("ovf.trl",)
+    else:
+        arrays, ring = comp.arrays, 0
     ts = torch.from_numpy(np.asarray(grid, np.float32)).to(dev)
-    arrs = _stage(comp.arrays, dev)
-    width = default_width(comp.static) if width is None else int(width)
+    arrs = _stage(arrays, dev)
     passes = 0
     while True:
-        runner = _Runner(comp.static, arrs, width,
-                         float(comp.arrays["horizon"]))
-        carry = runner.run(runner.init_carry(), ts)
-        host = _fetch(carry)
+        if devs is None:
+            runner = _Runner(st, arrs, width, horizon)
+            carry = runner.run(runner.init_carry(), ts)
+        else:
+            runner = _ShardedRunner(st, arrs, devs, width, horizon, ring)
+            carry = runner.gather(runner.run(runner.init_carry(), ts))
+        host = _fetch(carry, keys)
         passes += 1
         need = int(host["max_active"])
-        if need <= runner.U:
+        grow_ring = devs is not None and bool(host["ovf.trl"]) \
+            and ring < st.Rt
+        if need <= runner.U and not grow_ring:
             break
-        width = _pow2(need)
+        if need > runner.U:
+            width = _pow2(need)
+        if grow_ring:
+            ring = min(st.Rt, ring * 2)
     res = _assemble(cfg, comp, host, carry, len(ts), len(arrs) + 1)
-    res.width, res.passes = runner.U, passes
+    res.width, res.passes, res.ring = runner.U, passes, ring
     return res
+
+
+def _mesh_shape(mesh) -> Tuple[int, int]:
+    """Normalize a mesh request to ``(switch_shards, worker_shards)``: an
+    int (switch shards only), a 2-tuple, or a mesh whose axis sizes are
+    read by name ("switch" required, "worker" optional;
+    ``distributed.sharding.switch_mesh`` qualifies)."""
+    if isinstance(mesh, int):
+        return mesh, 1
+    if isinstance(mesh, tuple):
+        ns, nw = mesh
+        return int(ns), int(nw)
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    if "switch" not in sizes:
+        raise ValueError(f"mesh {mesh} has no 'switch' axis")
+    return int(sizes["switch"]), int(sizes.get("worker", 1))
+
+
+def _mesh_devices(mesh, device) -> np.ndarray:
+    """The ``(switch_shards, worker_shards)`` array of devices a mesh
+    request runs on (see :func:`run_vecsim`)."""
+    ns, nw = _mesh_shape(mesh)
+    if isinstance(mesh, Mesh):
+        if mesh.axis_names not in (("switch",), ("switch", "worker")):
+            raise ValueError(f"mesh {mesh}: the axes must be ('switch',) or "
+                             f"('switch', 'worker')")
+        devs = mesh.device_list()
+    elif isinstance(device, (list, tuple)):
+        devs = device_list(device)
+    else:
+        dev = resolve_device(device)
+        devs = visible_devices() if dev.type == "cuda" else [dev]
+    if ns < 1 or nw < 1 or ns * nw > len(devs):
+        raise ValueError(
+            f"mesh ({ns} switch x {nw} worker shards) needs {ns * nw} "
+            f"devices, only {len(devs)} available")
+    arr = np.empty(ns * nw, dtype=object)
+    arr[:] = devs[:ns * nw]
+    return arr.reshape(ns, nw)
+
+
+def _default_ring(comp: _Compiled, ns: int) -> int:
+    """The destination-aware local-ring bound: a source's in-flight rows
+    can land in shard ``d``'s ring only if one of its candidates lives
+    there (original switch ``v`` is on shard ``v % ns``). Skew beyond the
+    bound overflows a local ring, which the run reports and
+    :func:`run_vecsim` repeats doubled, at most ``Rt`` (a subset of the
+    destinations never holds more rows than the whole ring)."""
+    st = comp.static
+    cand, cnt = comp.arrays["cand"], comp.arrays["ccount"]
+    inflow = np.zeros(ns, np.int64)
+    for u in range(st.S):
+        if comp.wire[u] > 0:
+            for d in {int(c) % ns for c in cand[u, :int(cnt[u])] if c >= 0}:
+                inflow[d] += int(comp.wire[u])
+    return min(st.Rt, _pow2(max(int(inflow.max()), 2)))
 
 
 def auto_dt(cfg: SimCfg, *, tol: float = 0.05, prefix_frac: float = 0.25,
@@ -1205,6 +1764,7 @@ def _assemble(cfg: SimCfg, comp: _Compiled, host: Dict[str, np.ndarray],
     n_del = int(host["dlv.n"])
     n_drop = int(host["drp.n"])
     if (bool(host["ovf.tr"]) or bool(host["ovf.ps"]) or bool(host["ovf.ack"])
+            or bool(host.get("ovf.trl", False))
             or n_del > st.Gc or n_drop > st.Gd):
         raise RuntimeError(
             "vecsim internal buffer overflow (tr=%s ps=%s ack=%s dlv=%d/%d "

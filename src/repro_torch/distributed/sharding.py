@@ -1,0 +1,246 @@
+"""Multi-switch (S-axis) sharding over a mesh of torch devices.
+
+The counterpart of the second half of ``repro/distributed/sharding.py``
+(``switch_mesh``, ``vecsim_mesh``, ``olaf_combine_sharded``,
+``olaf_step_sharded``); its PartitionSpec half has no counterpart here.
+
+The fused kernels batch independent queues on a leading S axis, one per
+switch. On one device the axis folds into one launch; over a mesh it is
+split into contiguous blocks, one per device, and each device runs its
+block's launch. ``repro`` does this with ``shard_map`` from one controller
+over ``jax.devices()``; here one process walks the mesh's devices in turn.
+A :class:`Mesh` is a numpy object array of ``torch.device`` with axis
+names, read like ``jax.sharding.Mesh``. An explicit device list may name
+one device more than once (the counterpart of ``repro``'s forced host
+device count): every shard then runs on that device, one after another,
+with the same results as on separate cards.
+
+The collectives :func:`all_gather` and :func:`psum` work on a list of
+per-shard tensors; :func:`all_gather` always returns a fresh tensor, never
+a view of a part (``x.to(dev)`` returns ``x`` itself when it is already
+there, ROADMAP hazard H10).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.olaf_queue import TorchQueueState
+from repro_torch.device import resolve_device
+
+
+class Mesh:
+    """A named grid of devices: ``devices`` is a numpy object array of
+    ``torch.device`` whose axes ``axis_names`` names, in order."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        shape = np.shape(np.asarray(devices, dtype=object))
+        flat = [_norm(d) for d in np.asarray(devices, dtype=object).flat]
+        self.devices = _object_array(flat).reshape(shape)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"{self.devices.ndim}-d devices for axes "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def device_list(self) -> List[torch.device]:
+        return list(self.devices.flat)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.flat]})")
+
+
+def _object_array(devs: Sequence[torch.device]) -> np.ndarray:
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = list(devs)
+    return arr
+
+
+def _norm(device) -> torch.device:
+    """``device`` resolved (no silent fallback); a bare ``cuda`` gets the
+    current card's index, so it compares equal to a tensor's device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def visible_devices() -> List[torch.device]:
+    """Every visible card, as ``jax.devices()`` lists every device. Raises
+    without a card: a CPU mesh is asked for with an explicit device list."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError("no CUDA device is available for the mesh; pass "
+                           "an explicit device list (e.g. ['cpu'] * 4) to "
+                           "run the shards on the CPU")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def device_list(devices=None) -> List[torch.device]:
+    """``devices`` resolved one by one (repeats kept), or every visible
+    card when None."""
+    if devices is None:
+        return visible_devices()
+    return [_norm(d) for d in devices]
+
+
+def switch_mesh(n_switches, devices=None) -> Mesh:
+    """1-D mesh on axis ``"switch"`` sized to the largest divisor of
+    ``n_switches`` that the devices support. Accepts the switch count or a
+    ``TopologySpec`` (anything with ``num_switches``); ``devices`` defaults
+    to every visible card."""
+    n_switches = int(getattr(n_switches, "num_switches", n_switches))
+    devs = device_list(devices)
+    n = 1
+    for d in range(min(n_switches, len(devs)), 0, -1):
+        if n_switches % d == 0:
+            n = d
+            break
+    return Mesh(_object_array(devs[:n]), ("switch",))
+
+
+def _pow2_at_most(n: int) -> int:
+    return 1 << max(int(n), 1).bit_length() - 1
+
+
+def vecsim_mesh(n_switches=None, *, n_clusters: Optional[int] = None,
+                worker_shards: int = 1, devices=None) -> Mesh:
+    """2-D ``("switch", "worker")`` mesh for the sharded vectorized
+    simulator (:func:`repro_torch.core.vecsim.run_vecsim` with ``mesh=``):
+    per-switch state over ``"switch"``, worker generation / txctl / AoM
+    state over ``"worker"``. Shard counts are powers of two, which divide
+    the simulator's power-of-two padded axes: the worker axis gets at most
+    ``worker_shards`` devices (capped by ``n_clusters`` so the AoM rows
+    still split), the switch axis the largest power of two that fits the
+    remaining devices and the switch count. ``devices`` defaults to every
+    visible card."""
+    n_switches = int(getattr(n_switches, "num_switches", n_switches or 1))
+    devs = device_list(devices)
+    nw = _pow2_at_most(min(worker_shards, len(devs)))
+    if n_clusters is not None:
+        nw = min(nw, _pow2_at_most(n_clusters))
+    ns = _pow2_at_most(min(n_switches, len(devs) // nw))
+    return Mesh(_object_array(devs[:ns * nw]).reshape(ns, nw),
+                ("switch", "worker"))
+
+
+# ---------------------------------------------------------------------------
+# collectives over a list of per-shard tensors
+# ---------------------------------------------------------------------------
+def all_gather(parts: Sequence[torch.Tensor], dim: int = 0,
+               device=None) -> torch.Tensor:
+    """``lax.all_gather(..., tiled=True)`` over the shards of one mesh axis:
+    the parts concatenated along ``dim`` in shard order, on ``device``
+    (default the first part's). Always a fresh tensor: a one-part gather is
+    a copy, never the part itself. Dtypes are kept."""
+    device = parts[0].device if device is None else device
+    if len(parts) == 1:
+        return parts[0].to(device, copy=True)
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def psum(parts: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    """``lax.psum`` of per-shard values as an exact int32 sum (a bool part
+    counts 0 or 1), on ``device`` (default the first part's)."""
+    device = parts[0].device if device is None else device
+    return torch.stack([p.to(device).to(torch.int32) for p in parts]).sum(
+        0, dtype=torch.int32)
+
+
+def _blocks(n: int, mesh: Mesh, what: str) -> Tuple[List[torch.device], int]:
+    devs = mesh.device_list()
+    if n % len(devs):
+        raise ValueError(f"{what}: {n} switches do not split over "
+                         f"{len(devs)} devices")
+    return devs, n // len(devs)
+
+
+def olaf_combine_sharded(slots, counts, updates, clusters, gate, *,
+                         reset=None, mesh: Optional[Mesh] = None):
+    """``ops.olaf_combine_multi`` with the S axis split over the switch
+    mesh: one call per shard on its device (one kernel launch each on a
+    card), the results concatenated on the slots' device. A one-device
+    mesh makes the single folded call. ``reset`` (S, Q) bool is the
+    optional mask of slots that restart from this window; each shard's
+    slice goes to its own call. ``mesh`` defaults to :func:`switch_mesh`
+    over every visible card."""
+    from repro_torch.kernels import ops
+    home = slots.device
+    if mesh is None:
+        mesh = switch_mesh(slots.shape[0])
+    devs, k = _blocks(slots.shape[0], mesh, "olaf_combine_sharded")
+    ops_ = [torch.as_tensor(x).to(home) for x in
+            (slots, counts, updates, clusters, gate)]
+    rs = None if reset is None else torch.as_tensor(reset).to(home)
+    outs = [ops.olaf_combine_multi(
+                *(x[i * k:(i + 1) * k].to(d) for x in ops_),
+                reset=None if rs is None else rs[i * k:(i + 1) * k].to(d))
+            for i, d in enumerate(devs)]
+    if len(outs) == 1:
+        return tuple(o.to(home) for o in outs[0])
+    return tuple(torch.cat([o[j].to(home) for o in outs])
+                 for j in range(2))
+
+
+def olaf_step_sharded(states: TorchQueueState, clusters, workers, gen_times,
+                      rewards, payloads, reward_threshold=math.inf,
+                      send=None, capacities=None, *, k: int,
+                      mesh: Optional[Mesh] = None):
+    """``ops.olaf_step_multi`` with the S axis split over the switch mesh:
+    the full enqueue→drain cycle of every switch, one call per shard on its
+    device (one ``olaf_step`` launch each on a card), the new states and
+    drained rows concatenated on the queue's device.
+
+    ``capacities`` is an optional ``(S,)`` per-switch slot vector (switches
+    of different queue sizes ride one padded ``(S, Qmax)`` state); each
+    shard gets its slice. ``reward_threshold`` is a number, or anything
+    that broadcasts to ``(S, 1)``, of which each shard reads its first
+    row's value, as ``repro``'s ``th[0, 0]``. On a card each call updates
+    its shard of the queue in place: treat ``states`` as consumed."""
+    from repro_torch.kernels import ops
+    home = states.payload.device
+    S = states.payload.shape[0]
+    if mesh is None:
+        mesh = switch_mesh(S)
+    devs, n = _blocks(S, mesh, "olaf_step_sharded")
+    cap = None if capacities is None else torch.as_tensor(
+        capacities, dtype=torch.int32, device=home).expand(S)
+    thr = reward_threshold
+    if isinstance(thr, (torch.Tensor, np.ndarray)):
+        thr = torch.as_tensor(thr, dtype=torch.float32,
+                              device=home).broadcast_to((S, 1))
+    results = []
+    for i, d in enumerate(devs):
+        a, b = i * n, (i + 1) * n
+
+        def part(x):
+            return None if x is None else x[a:b].to(d)
+
+        st = TorchQueueState(**{f: part(v)
+                                for f, v in states.fields().items()})
+        th = thr[a, 0].to(d) if isinstance(thr, torch.Tensor) else thr
+        results.append(ops.olaf_step_multi(
+            st, part(clusters), part(workers), part(gen_times), part(rewards),
+            part(payloads), th, part(send), part(cap), k=k))
+    if len(results) == 1:
+        st, out = results[0]
+        return (TorchQueueState(**{f: v.to(home)
+                                   for f, v in st.fields().items()}),
+                {f: v.to(home) for f, v in out.items()})
+    new = TorchQueueState(**{
+        f: torch.cat([r[0].fields()[f].to(home) for r in results])
+        for f in states.fields()})
+    out = {f: torch.cat([r[1][f].to(home) for r in results])
+           for f in results[0][1]}
+    return new, out

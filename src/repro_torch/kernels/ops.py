@@ -2,7 +2,7 @@
 
 The counterparts of ``repro.kernels.ops``'s ``olaf_combine``,
 ``olaf_combine_multi``, ``olaf_combine_window``, ``olaf_forward``,
-``olaf_enqueue``, ``olaf_step``, ``flash_attention`` and
+``olaf_enqueue``, ``olaf_step``, ``olaf_step_multi``, ``flash_attention`` and
 ``decode_attention``, without the TPU tiling arguments. CUDA
 operands launch the hand-written kernel; CPU operands take the kernel's
 plain PyTorch version. Any other device, or operands spread over more than
@@ -47,7 +47,7 @@ def _route(op: str, dev: torch.device, cuda_fn, plain_fn):
     raise ValueError(f"{op}: no kernel for device {dev}")
 
 
-def olaf_combine(slots, counts, updates, clusters, gate
+def olaf_combine(slots, counts, updates, clusters, gate, *, reset=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Combine a burst of updates into cluster slots (running mean).
 
@@ -55,21 +55,25 @@ def olaf_combine(slots, counts, updates, clusters, gate
     int32, gate (U,) int32 or bool -> new ``(slots (Q, D), counts (Q,))``.
     A leading S axis on every operand batches S independent queues in one
     launch. ``gate`` is each update's aggregation weight (0 drops it).
+    ``reset`` (…, Q) bool, on the slots' device, marks slots that restart
+    from this burst: their counts enter the combine at 0, in the same
+    launch.
     """
     dev = _device_of(slots, counts, updates, clusters, gate, op="olaf_combine")
     fn = _route("olaf_combine", dev, olaf_combine_cuda, olaf_combine_plain)
-    return fn(slots, counts, updates, clusters, gate.to(torch.int32))
+    return fn(slots, counts, updates, clusters, gate.to(torch.int32),
+              reset=reset)
 
 
-def olaf_combine_multi(slots, counts, updates, clusters, gate
+def olaf_combine_multi(slots, counts, updates, clusters, gate, *, reset=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-queue combine: every operand carries a leading S (switch) axis
     — slots (S, Q, D), counts (S, Q), updates (S, U, D), clusters/gate
-    (S, U) — in one launch."""
+    (S, U), the optional ``reset`` (S, Q) — in one launch."""
     if slots.dim() != 3:
         raise ValueError(f"olaf_combine_multi: slots must be (S, Q, D), got "
                          f"{tuple(slots.shape)}")
-    return olaf_combine(slots, counts, updates, clusters, gate)
+    return olaf_combine(slots, counts, updates, clusters, gate, reset=reset)
 
 
 def olaf_combine_window(slots, counts, updates, clusters, gate, reset_slots
@@ -165,6 +169,24 @@ def olaf_step(state: TorchQueueState, clusters, workers, gen_times, rewards,
     if active_workers is not None:
         out = expire_inactive_drains(out, active_workers)
     return state, out
+
+
+def olaf_step_multi(states: TorchQueueState, clusters, workers, gen_times,
+                    rewards, payloads, reward_threshold=math.inf, send=None,
+                    capacity=None, screen=None, *, k: int
+                    ) -> Tuple[TorchQueueState, Dict[str, torch.Tensor]]:
+    """Multi-queue fused cycle: the counterpart of ``repro.kernels.ops.
+    olaf_step_multi``. Every operand carries a leading S axis: ``states``
+    of (S, Q), (S, Q, D) and (S,) tensors, the burst (S, U) and (S, U, D);
+    ``capacity`` is a slot count or an ``(S,)`` vector, one per switch. On
+    a card the S queues are one ``olaf_step`` launch (see
+    :func:`repro_torch.distributed.sharding.olaf_step_sharded` for the
+    split over a mesh); the queue is updated in place there."""
+    if states.payload.dim() != 3:
+        raise ValueError(f"olaf_step_multi: payload must be (S, Q, D), got "
+                         f"{tuple(states.payload.shape)}")
+    return olaf_step(states, clusters, workers, gen_times, rewards, payloads,
+                     reward_threshold, send, capacity, None, screen, k=k)
 
 
 def olaf_burst_multi(states: TorchQueueState, clusters, workers, gen_times,

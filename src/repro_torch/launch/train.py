@@ -14,8 +14,9 @@ The counterpart of ``repro.launch.train``, with its flags plus ``--device``
 The LM modes train the dense, moe, ssm and hybrid families; vlm and encdec
 exit as ``repro``'s do (their stub frontends have family-specific
 drivers). The scenario mode takes ``--sim-impl vectorized`` (and
-``--sim-dt``) on one device; ``--sim-shards``/``--sim-worker-shards``
-above 1 come with item 5. There is no
+``--sim-dt``); ``--sim-shards``/``--sim-worker-shards`` above 1 run it
+sharded over ``vecsim_mesh`` of the visible cards (the one CPU device with
+``--device cpu``), as ``repro``'s over ``jax.devices()``. There is no
 ``--step-impl``: the tensors' device picks the ``olaf_step`` route
 (``kernels/ops.py``). Examples:
 
@@ -54,6 +55,7 @@ from repro_torch.core.txctl import (TorchTxState, TxControlConfig, txctl_ack,
                                     txctl_gate, txctl_init, txctl_set_active)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import vecsim_mesh
 from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.models.module import (flat_size, flatten_like, tree_leaves,
@@ -545,10 +547,18 @@ def run_scenario(args):
     sim_dt = args.sim_dt
     if sim_dt not in (None, "auto"):
         sim_dt = float(sim_dt)
+    sim_mesh = None
+    if args.sim_shards > 1 or args.sim_worker_shards > 1:
+        n_sw = len(sim_cfg.switches) if sim_cfg is not None else 3
+        dev = resolve_device(args.device)
+        sim_mesh = vecsim_mesh(min(n_sw, args.sim_shards),
+                               worker_shards=args.sim_worker_shards,
+                               devices=None if dev.type == "cuda" else [dev])
     t0 = time.time()
     hyb, _cfg = run_hybrid_multihop(args.sim_dim, seed=args.seed,
                                     sim_cfg=sim_cfg, sim_impl=args.sim_impl,
-                                    sim_dt=sim_dt, device=args.device)
+                                    sim_dt=sim_dt, sim_mesh=sim_mesh,
+                                    device=args.device)
     wall = time.time() - t0
     enq = sum(qs["enqueued"] for qs in hyb.queue_stats.values())
     agg = sum(qs["aggregations"] for qs in hyb.queue_stats.values())
@@ -588,11 +598,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "bisected against the exact grid on a prefix); "
                          "skips the host oracle trace entirely")
     ap.add_argument("--sim-shards", type=int, default=1,
-                    help="switch shards of the vectorized model (only 1: "
-                         "sharding is ROADMAP queue 1 item 5)")
+                    help="shard the vectorized model's switch axis over "
+                         "this many devices (repro_torch.distributed."
+                         "sharding.vecsim_mesh)")
     ap.add_argument("--sim-worker-shards", type=int, default=1,
-                    help="worker shards of the vectorized model (only 1: "
-                         "sharding is ROADMAP queue 1 item 5)")
+                    help="shard the worker/cluster axis over this many "
+                         "devices (multiplies --sim-shards)")
     ap.add_argument("--sim-dim", type=int, default=64,
                     help="payload row width for --mode scenario")
     ap.add_argument("--steps", type=int, default=50)
@@ -645,10 +656,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.sim_shards > 1 or args.sim_worker_shards > 1:
-        ap.error("--sim-shards/--sim-worker-shards above 1 (the sharded "
-                 "vectorized simulator) are not ported yet: they come with "
-                 "ROADMAP queue 1 item 5")
     if args.sim_dt is not None and args.sim_dt != "auto":
         try:
             float(args.sim_dt)

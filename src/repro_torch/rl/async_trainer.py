@@ -304,8 +304,8 @@ def run_hybrid_ppo(*, env: str = "cartpole",
                    local_lr: float = 5e-3, seed: int = 0,
                    sharded: bool = True, batched: bool = True,
                    topology=None, flush_cadence: bool = True,
-                   sim_impl: Optional[str] = None, device="cuda",
-                   **multihop_kw):
+                   sim_impl: Optional[str] = None, sim_mesh=None,
+                   device="cuda", **multihop_kw):
     """Multi-switch hybrid run fed by real PPO gradients end to end: the
     counterpart of ``repro.rl.async_trainer.run_hybrid_ppo``.
 
@@ -324,7 +324,9 @@ def run_hybrid_ppo(*, env: str = "cartpole",
     **multihop_kw)``. ``sim_impl`` is ``"event"``, ``"window"``, None
     (keep ``batched``) or ``"vectorized"`` (the whole scenario through
     :func:`repro_torch.core.vecsim.run_vecsim` on ``device``, the
-    gradients' rewards on each worker's generation schedule). ``device``
+    gradients' rewards on each worker's generation schedule); ``sim_mesh``
+    shards that model (:func:`~repro_torch.core.hybrid.run_hybrid_multihop`).
+    ``device``
     defaults to ``"cuda"`` and raises without a card unless the caller
     passes ``"cpu"``.
 
@@ -368,7 +370,8 @@ def run_hybrid_ppo(*, env: str = "cartpole",
                                    sim_cfg=cfg, sharded=sharded,
                                    batched=batched,
                                    flush_cadence=flush_cadence,
-                                   sim_impl=sim_impl, device=dev)
+                                   sim_impl=sim_impl, sim_mesh=sim_mesh,
+                                   device=dev)
     ps = ParameterServer(flat0.cpu().numpy(), ps_cfg or PSConfig())
     for t, upd, row in hyb.delivered:  # deliveries -> reward-gated PS apply
         ps.on_updates(t, row.cpu().numpy().astype(np.float32)[None],

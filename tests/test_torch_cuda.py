@@ -668,6 +668,111 @@ def test_vectorized_hybrid_rows_live_on_the_card(cuda_device):
     assert card.launches == host.launches > 1
 
 
+@pytest.mark.cuda
+def test_sharded_kernels_launch_once_per_shard(cuda_device):
+    """``olaf_combine_sharded`` and ``olaf_step_sharded`` over three entries
+    of the card: three kernel launches each, equal to the one-launch call
+    (combine bit for bit, with and without a reset mask; step metadata
+    exact, payload within rtol 1e-5, atol 1e-6), heterogeneous capacities
+    included."""
+    from repro_torch.distributed import sharding
+    rng = np.random.default_rng(17)
+    S, Q, U, D = 6, 4, 8, 941
+    args = (torch.from_numpy(rng.normal(size=(S, Q, D)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 3, (S, Q)).astype(np.int32)),
+            torch.from_numpy(rng.normal(size=(S, U, D)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, Q, (S, U)).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 3, (S, U)).astype(np.int32)))
+    args = tuple(a.to(cuda_device) for a in args)
+    mesh = sharding.switch_mesh(S, devices=[cuda_device] * 3)
+    olaf_combine_cuda.launches = 0
+    one = ops.olaf_combine_multi(*args)
+    assert olaf_combine_cuda.launches == 1
+    split = sharding.olaf_combine_sharded(*args, mesh=mesh)
+    assert olaf_combine_cuda.launches == 4
+    assert all(torch.equal(a, b) for a, b in zip(one, split))
+    # each shard's slice of a reset mask rides its own launch
+    reset = torch.from_numpy(rng.random((S, Q)) < 0.4).to(cuda_device)
+    one = ops.olaf_combine_multi(*args, reset=reset)
+    split = sharding.olaf_combine_sharded(*args, reset=reset, mesh=mesh)
+    assert olaf_combine_cuda.launches == 8
+    assert all(torch.equal(a, b) for a, b in zip(one, split))
+
+    S, Q, U, k = 3, 64, 96, 16
+    caps = torch.tensor([48, 64, 17], dtype=torch.int32, device=cuda_device)
+    states = TorchQueueState.stack([queue_init(Q, 4099, device=cuda_device)
+                                    for _ in range(S)])
+    burst = _burst(rng, S, U, 4099, 24, 1.0, cuda_device)
+    olaf_step_cuda.launches = 0
+    st1, out1 = ops.olaf_step_multi(states.clone(), *burst, capacity=caps,
+                                    k=k)
+    st3, out3 = sharding.olaf_step_sharded(
+        states.clone(), *burst, capacities=caps, k=k,
+        mesh=sharding.switch_mesh(S, devices=[cuda_device] * 3))
+    assert olaf_step_cuda.launches == 4
+    for f in META_FIELDS:
+        assert torch.equal(getattr(st1, f), getattr(st3, f)), f
+    for f in OUT_EXACT:
+        assert torch.equal(out1[f], out3[f]), f
+    torch.testing.assert_close(st3.payload, st1.payload, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(out3["payload"], out1["payload"], rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sharded_vecsim_on_the_card_equals_one_device(cuda_device):
+    """A (2,1) mesh on one card against the one-device card run, bit for
+    bit (transmission control, lossy links, the ``hash`` route), and a
+    sharded segment stepped under ``set_sync_debug_mode("error")``."""
+    from repro_torch.core import vecsim
+    from repro_torch.core.netsim import FaultSpec, LinkFault
+    from repro_torch.core.txctl import TxControlConfig
+    cfg0 = _dyadic_fattree_cfg("hash")
+    cfg = dataclasses.replace(
+        cfg0, tx_control=TxControlConfig(delta_threshold=0.5),
+        faults=FaultSpec(links=[LinkFault(switch=s.name, drop_prob=0.1)
+                                for s in cfg0.switches], seed=3))
+    kw = dict(dt=2.0 ** -9, allow_coarse=True, dim=33)
+    one = vecsim.run_vecsim(cfg, device=cuda_device, **kw)
+    split = vecsim.run_vecsim(cfg, mesh=(2, 1), device=[cuda_device] * 2,
+                              **kw)
+    assert split.delivered_payloads.device.type == "cuda"
+    assert len(one.delivery_times) > 0
+    assert [dataclasses.astuple(u) for u in one.sim.delivered_updates] == \
+        [dataclasses.astuple(u) for u in split.sim.delivered_updates]
+    for f in ("queue_stats", "sent", "deferred", "link_dropped",
+              "raw_link_dropped", "reroutes", "drops_by_switch",
+              "reroutes_by_switch"):
+        assert getattr(one.sim, f) == getattr(split.sim, f), f
+    for f in ("aom", "n_steps", "forwarded", "residual"):
+        assert getattr(one, f) == getattr(split, f), f
+    np.testing.assert_array_equal(one.delivery_times, split.delivery_times)
+    np.testing.assert_array_equal(one.final_counts, split.final_counts)
+    assert torch.equal(one.delivered_payloads, split.delivered_payloads)
+
+    comp = vecsim.compile_scenario(cfg, dim=33)
+    perm = vecsim._stripe_perm(comp.static.S, 2)
+    arrays = dict(comp.arrays)
+    for key in vecsim._SWITCH_AXIS_KEYS:
+        arrays[key] = comp.arrays[key][perm]
+    devs = np.empty(2, dtype=object)
+    devs[:] = [torch.device("cuda", torch.cuda.current_device())] * 2
+    runner = vecsim._ShardedRunner(
+        comp.static, vecsim._stage(arrays, devs[0]), devs.reshape(2, 1), 8,
+        float(comp.arrays["horizon"]), comp.static.Rt)
+    carry = runner.init_carry()
+    ts = torch.from_numpy(vecsim.uniform_grid(cfg, 2.0 ** -9,
+                                              allow_coarse=True)).to(devs[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry = runner.run(carry, ts[:64])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(carry["rep"]["sent"]) > 0
+
+
 # --------------------------------------------------------------------------
 # the moe, ssm, hybrid, vlm and encdec families
 # --------------------------------------------------------------------------

@@ -224,16 +224,21 @@ def test_legacy_every_switch_flush():
 
 def test_sharded_one_device():
     """``sharded=True``: the multi-queue combine on the reset-masked counts
-    and a separate drain, with repro's counters."""
+    and a separate drain, with repro's counters; over a list of three
+    devices (one switch each) the same bits, and a list without
+    ``sharded`` raises."""
     got = run_both(multihop(3), sharded=True)
     plain, _ = t_hyb.run_hybrid_multihop(DIM, sim_cfg=multihop(3)(PORT),
                                          device="cpu")
     assert got.forward_launches == plain.forward_launches
     for (_, _, p0), (_, _, p1) in zip(got.delivered, plain.delivered):
         torch.testing.assert_close(p0, p1, rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    split, _ = t_hyb.run_hybrid_multihop(DIM, sim_cfg=multihop(3)(PORT),
+                                         sharded=True, device=["cpu"] * 3)
+    assert_bitwise(got, split)
+    with pytest.raises(ValueError, match="needs sharded=True"):
         t_hyb.run_hybrid_multihop(DIM, sim_cfg=multihop(3)(PORT),
-                                  sharded=True, device=["cpu", "cpu"])
+                                  device=["cpu", "cpu"])
 
 
 @pytest.mark.parametrize("impl", ["event", "window"])
@@ -339,9 +344,11 @@ def test_drain_only_departure_delivers_its_row_h10(sharded):
 
 
 def test_backend_selection_errors():
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # a mesh of two switch shards over the one CPU device, as repro's over
+    # one jax device
+    with pytest.raises(ValueError, match="needs 2 devices, only 1"):
         t_hyb.run_hybrid_multihop(DIM, sim_impl="vectorized", sim_mesh=2,
-                                  device="cpu")
+                                  sim_dt=0.01, device="cpu")
     with pytest.raises(ValueError, match="sim_dt/sim_mesh require"):
         t_hyb.run_hybrid_multihop(DIM, sim_impl="event", sim_dt=0.01,
                                   device="cpu")

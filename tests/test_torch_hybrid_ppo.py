@@ -116,15 +116,12 @@ STUB_FRONTEND = "use the family-specific example drivers for stub-frontend archs
     (["--arch", "internvl2-76b", "--reduced", "--mode", "sync"],
      STUB_FRONTEND, ""),
     (["--arch", "whisper-small", "--reduced", "--mode", "olaf-async"],
-     STUB_FRONTEND, ""),
-    (["--mode", "scenario", "--sim-impl", "vectorized", "--sim-shards", "2"],
-     2, "ROADMAP queue 1 item 5")])
+     STUB_FRONTEND, "")])
 def test_scenario_command_refuses_unported_modes(argv, code, match, capsys,
                                                  monkeypatch):
     """The LM modes refuse the vlm and encdec families with ``repro``'s own
-    ``SystemExit`` message, and the scenario command refuses the sharded
-    vectorized simulator (exit 2 through the parser), before any model is
-    built."""
+    ``SystemExit`` message, before any model is built. (The scenario
+    command's ``--sim-shards`` runs: ``tests/test_torch_sharded.py``.)"""
     from repro_torch.models import api
 
     def no_model(*a, **kw):

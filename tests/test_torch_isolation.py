@@ -51,7 +51,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.decode_attention",
             "repro_torch.launch.serve", "repro_torch.optim.compress",
             "repro_torch.core.verifier",
-            "repro_torch.examples.quickstart"} <= names
+            "repro_torch.examples.quickstart",
+            "repro_torch.distributed.sharding"} <= names
 
 
 def test_trainer_without_a_card_raises():

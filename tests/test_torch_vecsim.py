@@ -249,11 +249,17 @@ def test_unsupported_features_raise_where_repro_raises(change):
 
 
 def test_sharding_and_the_default_device_raise():
+    """A mesh larger than the visible devices raises ``ValueError`` (one
+    CPU device here, as ``repro`` on one jax device); ``rt_loc`` without a
+    mesh is ignored, as in ``repro``; the default device needs a card."""
     cfg = to_port(_dyadic_fattree_cfg())
-    for kw in (dict(mesh=2), dict(rt_loc=8)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            t_vec.run_vecsim(cfg, dt=1e-3, allow_coarse=True, device="cpu",
-                             **kw)
+    kw = dict(dt=2.0 ** -7, allow_coarse=True, device="cpu")
+    with pytest.raises(ValueError, match="needs 2 devices, only 1"):
+        t_vec.run_vecsim(cfg, mesh=2, **kw)
+    a = t_vec.run_vecsim(cfg, **kw)
+    b = t_vec.run_vecsim(cfg, rt_loc=8, **kw)
+    np.testing.assert_array_equal(a.delivery_times, b.delivery_times)
+    assert a.sim.queue_stats == b.sim.queue_stats and b.ring == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_vec.run_vecsim(cfg, dt=1e-3, allow_coarse=True)
