@@ -37,8 +37,13 @@ sharded vectorized simulator (``[sharded]``: the k=8 scale configuration
 on 8 switch shards held bit for bit to one device, a (2,2) mesh at k=4,
 ``--sim-shards``, the hybrid's switch mesh with one ``olaf_combine``
 launch per shard, ``olaf_step_sharded`` with one ``olaf_step`` launch per
-shard; on a one-card host every shard runs on that card). The
-attention kernels are held to their plain versions in both the
+shard; on a one-card host every shard runs on that card), activation
+checkpointing (``[remat]``: the full-width olaf-async run under
+``remat_policy`` none, full and dots, counters equal, peak memory and step
+wall each), and the dry-run tooling (``[dryrun]``: ``launch.dryrun --all``
+on the meta device, then its predicted argument bytes for smollm-360m at
+the ``[train]`` shape against the tensors the trainer holds on the card).
+The attention kernels are held to their plain versions in both the
 folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one, and
 timed beside SDPA. It prints each kernel's ptxas registers and spills,
 counts each wrapper's device kernels per call in a profiler trace (one,
@@ -57,6 +62,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
+import io
 import json
 import math
 import pathlib
@@ -73,6 +79,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.core import olaf_queue  # noqa: E402
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.core.netsim import FaultSpec, PSFault, WorkerFault  # noqa: E402
@@ -88,7 +95,9 @@ from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
                                               olaf_enqueue_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.examples import lm_train as example_lm_train  # noqa: E402
 from repro_torch.examples import quickstart as example_quickstart  # noqa: E402
@@ -2060,7 +2069,8 @@ def train_phase(dev) -> dict:
         f"({params[0].dtype}, seeded random weights): D={tr.dim} "
         f"({tr.dim * 4} B a row), queue Q={tr.state.queue.cluster.shape[0]} "
         f"{qbytes} B, workers 4 batch 32 seq 256 burst 2 drain_k 4 screen "
-        f"on; {steps} steps in {tr.wall:.3f} s = {steps / tr.wall:.3f} "
+        f"on, remat {tr.cfg.remat_policy if tr.cfg.remat else 'off'}; "
+        f"{steps} steps in {tr.wall:.3f} s = {steps / tr.wall:.3f} "
         f"steps/s; olaf_step launches {counts['olaf_step']} (counted from 0); "
         f"peak memory {peak} B ({peak / 2**30:.2f} GiB; {held} B of it "
         f"held before the run, so the run's own {(peak - held) / 2**30:.2f} "
@@ -2181,6 +2191,210 @@ def train_phase(dev) -> dict:
                 ps_step_bound_ms=ps_bound, step_s=wall_1,
                 idle_share=idle, idle_share_profiled=idle_p,
                 peak_bytes=peak - held)
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing: the full-width olaf-async run under each policy
+# ---------------------------------------------------------------------------
+REMAT_POLICIES = ("none", "full", "dots")
+REMAT_TOL = 1e-4  # losses across the policies (H19: AdamW amplifies noise)
+
+
+@contextlib.contextmanager
+def remat_policy(policy):
+    """``launch.train`` builds its config with ``remat_policy=policy``."""
+    orig = launch_train.get_config
+
+    def get(name):
+        return dataclasses.replace(orig(name), remat=True,
+                                   remat_policy=policy)
+
+    launch_train.get_config = get
+    try:
+        yield
+    finally:
+        launch_train.get_config = orig
+
+
+def gradient_events(tr, cfg):
+    """Device events of one worker gradient of ``tr`` under ``cfg`` (a
+    profiled call), and that gradient (a float32 row)."""
+    batch = {k: launch_train.to_device(v, tr.device)
+             for k, v in tr.shards[0].batch(0).items()}
+    out = torch.empty(tr.dim, dtype=torch.float32, device=tr.device)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        launch_train.worker_grad(tr.state.params, batch, cfg, out)
+        torch.cuda.synchronize()
+    return sum(n for n, _ in device_kernels(prof).values()), out
+
+
+def remat_phase(dev) -> dict:
+    """``TRAIN_FULL`` under ``remat_policy`` none, full and dots, each
+    counted from 0: peak memory above what earlier phases hold, the step
+    wall, device events per worker gradient, ``olaf_step`` launches (one
+    per PS step); every counter equal across the policies, the losses
+    within ``REMAT_TOL``; one worker gradient at the same weights and
+    batch under each policy, compared bit for bit."""
+    t_phase = time.perf_counter()
+    runs, counts = {}, {}
+    tr = None
+    for policy in REMAT_POLICIES:
+        del tr
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with remat_policy(policy), \
+                EventClock(launch_train, "worker_grad") as grad_clock:
+            tr = launch_train.main(TRAIN_FULL)
+            torch.cuda.synchronize()
+        counts[policy] = read_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        steps = tr.args.steps
+        require(counts[policy]["olaf_step"] == steps,
+                f"remat {policy}: {counts[policy]['olaf_step']} olaf_step "
+                f"launches in {steps} PS steps")
+        require(tr.cfg.remat and tr.cfg.remat_policy == policy,
+                f"remat {policy}: the trainer ran {tr.cfg.remat_policy}")
+        grad_ms = grad_clock.ms()
+        runs[policy] = dict(
+            peak_bytes=peak, step_s=tr.wall / steps,
+            grad_ms=float(np.mean(grad_ms[2:])),
+            losses=[l for _, l, _ in tr.log_rows],
+            combined=[c for *_, c in tr.log_rows],
+            totals=(tr.deferred_total, tr.stale_total, tr.screened_total),
+            queue={f: getattr(tr.state.queue, f).cpu() for f in META
+                   if f != "reward"})
+        log(f"[remat] {policy}: peak {peak} B ({peak / 2**30:.2f} GiB above "
+            f"the {held} B held before); {steps} steps in {tr.wall:.3f} s = "
+            f"{tr.wall / steps:.4f} s a step; worker gradient "
+            f"{runs[policy]['grad_ms']:.2f} ms (CUDA events, mean of "
+            f"gradients 3-{len(grad_ms)}); olaf_step launches "
+            f"{counts[policy]['olaf_step']} (counted from 0); losses "
+            f"{[round(l, 6) for l in runs[policy]['losses']]}")
+    # one worker gradient at the last run's weights and one batch, profiled,
+    # under each policy
+    grads = {}
+    for policy in REMAT_POLICIES:
+        runs[policy]["events_per_grad"], grads[policy] = gradient_events(
+            tr, dataclasses.replace(tr.cfg, remat_policy=policy))
+    del tr
+    log("[remat] device events per worker gradient (one profiled call at "
+        "the same weights and batch): " + ", ".join(
+            f"{p} {runs[p]['events_per_grad']}" for p in REMAT_POLICIES))
+    base = runs["none"]
+    for policy in REMAT_POLICIES[1:]:
+        r = runs[policy]
+        require(counts[policy] == counts["none"]
+                and r["combined"] == base["combined"]
+                and r["totals"] == base["totals"]
+                and all(torch.equal(v, base["queue"][f])
+                        for f, v in r["queue"].items()),
+                f"remat {policy}: counters differ from none")
+        require(np.allclose(r["losses"], base["losses"], rtol=REMAT_TOL,
+                            atol=0), f"remat {policy}: losses {r['losses']} "
+                f"vs {base['losses']}")
+    diffs = {p: float((grads[p] - grads["none"]).abs().max())
+             for p in REMAT_POLICIES[1:]}
+    log("[remat] counters equal across the policies (deferred, stale, "
+        f"screened {base['totals']}, combined {base['combined']}, the queue's "
+        f"metadata); losses within rtol {REMAT_TOL}; one worker gradient at "
+        "the same weights and batch: " + "; ".join(
+            f"{p} {'bitwise equal to none' if d == 0 else f'max |diff| {d:.3g} from none'}"
+            for p, d in diffs.items()))
+    log(f"[remat] phase wall {time.perf_counter() - t_phase:.1f} s")
+    del grads
+    torch.cuda.empty_cache()
+    return dict(counts=counts, runs={p: {k: r[k] for k in (
+        "peak_bytes", "step_s", "grad_ms", "events_per_grad")}
+        for p, r in runs.items()}, grad_diff=diffs)
+
+
+# ---------------------------------------------------------------------------
+# the dry run: the sweep on the meta device, then one card's bytes
+# ---------------------------------------------------------------------------
+DRYRUN_SHAPE = ShapeCfg("train", seq_len=256, global_batch=32, kind="train")
+DRYRUN_SYNC = TRAIN_SYNC[:TRAIN_SYNC.index("--steps")] + [
+    "--steps", "1", "--log-every", "0"]
+
+
+class BatchCapture:
+    """Replaces ``launch_train.loss_and_grads`` inside a ``with`` block and
+    keeps the last batch it was given."""
+
+    def __enter__(self):
+        self._orig = orig = launch_train.loss_and_grads
+
+        def wrapper(params, batch, cfg):
+            self.batch = batch
+            return orig(params, batch, cfg)
+
+        launch_train.loss_and_grads = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        launch_train.loss_and_grads = self._orig
+        return False
+
+
+def dryrun_phase(dev) -> dict:
+    """``python -m repro_torch.launch.dryrun --all`` over both meshes on the
+    meta device (its summary line and seconds), then smollm-360m at the
+    ``[train]`` shape on a (1, 1) mesh: the predicted argument bytes
+    (params, AdamW m/v, step, one batch) against the summed ``nbytes`` of
+    the same tensors as ``launch.train --mode sync`` holds them on the
+    card."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = dryrun.main(["--all", "--out", out_dir])
+        n_records = len(list(pathlib.Path(out_dir).glob("*.json")))
+    sweep_s = time.perf_counter() - t0
+    summary = [ln for ln in text.getvalue().splitlines()
+               if ln.startswith("dry-run summary")]
+    require(rc == 0 and summary and n_records == 80,
+            f"dryrun sweep: rc {rc}, {n_records} records, {summary}")
+    log(f"[dryrun] --all, both meshes, on the meta device: {summary[0]} in "
+        f"{sweep_s:.1f} s")
+    fit = dryrun.memory_fit(get_config("smollm-360m"), DRYRUN_SHAPE,
+                            make_host_mesh(1, 1))
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with BatchCapture() as cap:
+        res = launch_train.main(DRYRUN_SYNC)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    allocated = torch.cuda.memory_allocated() - held
+    peak = torch.cuda.max_memory_allocated() - held
+    parts = dict(params=tree_leaves(res.params),
+                 opt_state=tree_leaves(res.opt_state),
+                 inputs=list(cap.batch.values()))
+    on_card = {k: sum(x.nbytes for x in v) for k, v in parts.items()}
+    require(all(x.device.type == "cuda" for v in parts.values() for x in v),
+            "dryrun: the trainer's tensors are not on the card")
+    require(sum(on_card.values()) == fit["argument_bytes"]
+            and on_card == fit["arguments"],
+            f"dryrun: predicted {fit['arguments']} B, the trainer holds "
+            f"{on_card} B")
+    log(f"[dryrun] smollm-360m train seq {DRYRUN_SHAPE.seq_len} batch "
+        f"{DRYRUN_SHAPE.global_batch} on a (1, 1) mesh: "
+        f"predicted argument bytes {fit['argument_bytes']} ({fit['arguments']})"
+        f" equal the trainer's tensors on the card ({on_card}); output "
+        f"{fit['output_bytes']} B; memory_allocated after the sync step "
+        f"{allocated} B, its peak {peak} B ({peak / 2**30:.2f} GiB; the "
+        f"prediction's lower bound {fit['per_device_lower_bound'] / 2**30:.2f}"
+        f" GiB leaves out activations and gradients); phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    del res, parts, cap
+    torch.cuda.empty_cache()
+    return dict(counts=counts, sweep_s=sweep_s, summary=summary[0],
+                predicted=fit["argument_bytes"], allocated=allocated,
+                peak=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -3179,6 +3393,10 @@ def main() -> int:
     train = train_phase(dev)
     max_err = max(max_err, train["max_abs_err"])
 
+    # ---- 4f'. activation checkpointing; the dry run ------------------------
+    remat = remat_phase(dev)
+    dry = dryrun_phase(dev)
+
     # ---- 4g. the other families: moe, ssm, hybrid, vlm, encdec -----------
     families = families_phase(dev, smi)
 
@@ -3243,7 +3461,9 @@ def main() -> int:
                  **{f"serve {a}" if not a.startswith("train") else a: c
                     for a, c in families["counts"].items()},
                  recovery=recovery["counts"], **examples["counts"],
-                 **sharded["counts"])
+                 **sharded["counts"],
+                 **{f"remat {p}": c for p, c in remat["counts"].items()},
+                 **{"dryrun sync": dry["counts"]})
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -3277,6 +3497,9 @@ def main() -> int:
                        "max_abs_err", "ps_step_ms", "ps_step_bound_ms",
                        "step_s", "idle_share", "idle_share_profiled",
                        "peak_bytes")}),
+        remat=dict(path="TRAIN_FULL under remat_policy none, full, dots: "
+                        "one launch per PS step each",
+                   **remat["runs"], grad_max_abs_diff=remat["grad_diff"]),
         recovery=dict(
             path="AsyncDRLTrainer with a PS bounce and snapshots every 3 "
                  "deliveries (lander D=941): one launch per drain",

@@ -4,8 +4,11 @@ Every assigned architecture is a frozen :class:`ArchConfig`; the four
 assigned input shapes are :data:`SHAPES`. ``reduced()`` derives the tiny
 same-family config used by CPU tests. The fields are ``repro``'s, field for
 field, so a configuration means the same in both packages; of the execution
-fields the port reads ``dtype``, ``attn_impl`` and ``attn_chunk`` (one
-device: no remat, no scan, no activation sharding).
+fields the port reads ``dtype``, ``attn_impl``, ``attn_chunk``, ``remat``
+and ``remat_policy`` (``models.module.run_periods``), and the dry run reads
+the distribution context (``tp_size``, ``mesh_axes``: padded heads and the
+activation specs). It loops over layers in Python, so ``scan_layers`` and
+``unroll_loops`` change nothing, and applies no activation sharding.
 """
 from __future__ import annotations
 

@@ -1,8 +1,23 @@
-"""Multi-switch (S-axis) sharding over a mesh of torch devices.
+"""Logical-axis sharding rules, and multi-switch (S-axis) sharding over a
+mesh of torch devices: the counterpart of ``repro/distributed/sharding.py``.
 
-The counterpart of the second half of ``repro/distributed/sharding.py``
-(``switch_mesh``, ``vecsim_mesh``, ``olaf_combine_sharded``,
-``olaf_step_sharded``); its PartitionSpec half has no counterpart here.
+**The spec half** (``_PARAM_RULES`` to ``out_pspecs_for``): ``repro``'s
+MaxText-style rules for params, inputs and caches on the production mesh
+(``data`` 16 × ``model`` 16, optionally ``pod`` 2): batch over
+("pod","data"); params FSDP over ``data`` on the d_model dim and TP over
+``model`` on one output dim, with divisibility-checked fallbacks; KV
+caches batch over ``data`` and kv-heads (else the sequence) over
+``model``. Here they are a resolver over axis sizes (a mapping of axis
+name to size, or anything with ``axis_names`` and ``devices.shape``),
+which returns one tuple per tensor dim, each entry ``None``, an axis name
+or a tuple of names: ``repro``'s ``PartitionSpec`` padded with ``None`` to
+the tensor's rank. Nothing applies them yet: ``repro``'s ``to_named`` (a
+``NamedSharding``) waits for the multi-process launcher (ROADMAP queue 1
+item 9). ``launch/dryrun.py`` reads them to divide each tensor's bytes
+over the devices.
+
+**The multi-switch half** (``switch_mesh``, ``vecsim_mesh``,
+``olaf_combine_sharded``, ``olaf_step_sharded``):
 
 The fused kernels batch independent queues on a leading S axis, one per
 switch. On one device the axis folds into one launch; over a mesh it is
@@ -23,13 +38,235 @@ there, ROADMAP hazard H10).
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+import re
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.olaf_queue import TorchQueueState
 from repro_torch.device import resolve_device
+from repro_torch.models.module import tree_paths
+
+# ---------------------------------------------------------------------------
+# The spec half: params, inputs and caches
+# ---------------------------------------------------------------------------
+Spec = Tuple[Any, ...]  # one entry per dim: None, an axis name, or a tuple
+
+# dim annotation -> ordered candidate mesh-axis names
+FSDP = ("data",)
+TP = ("model",)
+NONE: Tuple[str, ...] = ()
+
+# (path regex, per-dim candidates, priority order of dims for resolution),
+# ``repro``'s table: dims are those of the unstacked tensor; a leading layer
+# axis is detected by the rank and gets no sharding; None replicates
+_PARAM_RULES: List[Tuple[str, Optional[Tuple[Tuple[str, ...], ...]],
+                         Tuple[int, ...]]] = [
+    (r"embedding/embed$",        (TP, FSDP),           (0, 1)),
+    (r"embedding/unembed$",      (FSDP, TP),           (1, 0)),
+    (r"patch_proj$",             (FSDP, TP),           (1, 0)),
+    (r"attn/wq$",                (FSDP, TP, NONE),     (1, 0)),
+    (r"attn/wk$",                (FSDP, TP, NONE),     (1, 0)),
+    (r"attn/wv$",                (FSDP, TP, NONE),     (1, 0)),
+    (r"attn/wo$",                (TP, NONE, FSDP),     (0, 2)),
+    (r"mlp/wg$",                 (FSDP, TP),           (1, 0)),
+    (r"mlp/wu$",                 (FSDP, TP),           (1, 0)),
+    (r"mlp/wd$",                 (TP, FSDP),           (0, 1)),
+    (r"moe/router$",             (FSDP, NONE),         (0,)),
+    (r"moe/wg$",                 (TP, FSDP, TP),       (0, 2, 1)),
+    (r"moe/wu$",                 (TP, FSDP, TP),       (0, 2, 1)),
+    (r"moe/wd$",                 (TP, TP, FSDP),       (0, 1, 2)),
+    (r"moe/dense/w[gud]$",       (FSDP, TP),           (1, 0)),
+    (r"ssm/w[zx]$",              (FSDP, TP),           (1, 0)),
+    (r"ssm/w(B|C|dt)$",          (FSDP, NONE),         (0,)),
+    (r"ssm/wo$",                 (TP, FSDP),           (0, 1)),
+    (r"ssm/conv_[wb]$",          None,                 ()),
+    (r"ssm/(A_log|dt_bias|D|norm_scale)$", None,       ()),
+    (r"rec/w_(gate|rec)_branch$", (FSDP, TP),          (1, 0)),
+    (r"rec/w_[ax]$",             (FSDP, TP),           (1, 0)),
+    (r"rec/conv_[wb]$",          None,                 ()),
+    (r"rec/lam$",                None,                 ()),
+    (r"rec/wo$",                 (TP, FSDP),           (0, 1)),
+    (r"(ln1|ln2|ln_x|final_norm|enc_final|dec_final|norm)/", None, ()),
+    (r"(scale|bias)$",           None,                 ()),
+]
+
+_ATTN_PAT = re.compile(r"(attn)/w[qkvo]$")
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a mapping, or of a mesh (``axis_names`` and
+    ``devices.shape``: this module's :class:`Mesh` or ``repro``'s)."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _resolve_spec(shape: Sequence[int],
+                  dims: Optional[Tuple[Tuple[str, ...], ...]],
+                  priority: Tuple[int, ...], sizes: Mapping[str, int],
+                  lead_pad: int) -> Spec:
+    """At most one mesh axis per tensor dim, honouring divisibility."""
+    spec: List[Optional[str]] = [None] * len(shape)
+    if dims is None:
+        return tuple(spec)
+    used: set = set()
+    for di in priority:
+        idx = di + lead_pad
+        if idx >= len(shape):
+            continue
+        for cand in dims[di]:
+            if cand in used or cand not in sizes:
+                continue
+            if shape[idx] % sizes[cand] == 0 and shape[idx] > 0:
+                spec[idx] = cand
+                used.add(cand)
+                break
+    return tuple(spec)
+
+
+def params_pspecs(param_tree, mesh) -> Any:
+    """A params tree (tensors, meta or not) -> a tree of per-dim specs."""
+    sizes = axis_sizes(mesh)
+    specs: Dict[str, Spec] = {}
+    for path, leaf in tree_paths(param_tree).items():
+        shape = tuple(leaf.shape)
+        specs[path] = (None,) * len(shape)  # unmatched: replicate
+        for pat, dims, prio in _PARAM_RULES:
+            if re.search(pat, path):
+                lead = len(shape) - len(dims) if dims else 0
+                specs[path] = _resolve_spec(shape, dims, prio, sizes, lead)
+                break
+    return _unflatten_like(param_tree, specs)
+
+
+def params_pspecs_cfg(param_tree, mesh, cfg) -> Any:
+    """:func:`params_pspecs`, with the TP entries stripped from attention
+    weights when ``cfg.attn_mode == "replicated"`` (tiny-head archs whose
+    attention is replicated over the model axis)."""
+    specs = params_pspecs(param_tree, mesh)
+    if cfg is None or cfg.attn_mode != "replicated":
+        return specs
+    flat = tree_paths_like(specs)
+    return _unflatten_like(param_tree, {
+        path: (tuple(a if a == "data" else None for a in spec)
+               if _ATTN_PAT.search(path) else spec)
+        for path, spec in flat.items()})
+
+
+def tree_paths_like(spec_tree) -> Dict[str, Spec]:
+    """A spec tree flattened to {'a/b/c': spec} (dicts only: a spec is a
+    tuple, so it is a leaf here)."""
+    flat: Dict[str, Spec] = {}
+
+    def rec(t, prefix=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                rec(v, f"{prefix}/{k}" if prefix else k)
+        else:
+            flat[prefix] = t
+
+    rec(spec_tree)
+    return flat
+
+
+def _unflatten_like(tree, flat_specs: Dict[str, Spec], prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _unflatten_like(v, flat_specs,
+                                   f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten_like(v, flat_specs, f"{prefix}/{i}")
+                          for i, v in enumerate(tree))
+    return flat_specs[prefix]
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in ("pod", "data") if a in sizes)
+
+
+def _shardable(size: int, mesh, axes: Tuple[str, ...]) -> bool:
+    sizes = axis_sizes(mesh)
+    n = int(np.prod([sizes[a] for a in axes]))
+    return size % n == 0 and size >= n
+
+
+def _entry(axes: Tuple[str, ...]):
+    """A spec entry naming ``axes``: one name stands alone, as
+    ``PartitionSpec`` normalises ("data",) to "data"."""
+    return axes[0] if len(axes) == 1 else axes
+
+
+def data_pspecs(specs: Dict[str, Any], mesh, cfg) -> Dict[str, Any]:
+    """Specs of a train/prefill/decode input dict (``api.input_specs``):
+    the batch dim over the batch axes where divisible, else ``data``."""
+    ba = batch_axes(mesh)
+    out: Dict[str, Any] = {}
+    for name, leaf in specs.items():
+        if name == "caches":
+            out[name] = cache_pspecs(leaf, mesh, cfg)
+            continue
+        shape = tuple(leaf.shape)
+        b_spec = (_entry(ba) if _shardable(shape[0], mesh, ba)
+                  else "data" if _shardable(shape[0], mesh, ("data",))
+                  else None)
+        out[name] = (b_spec,) + (None,) * (len(shape) - 1)
+    return out
+
+
+def cache_pspecs(cache_tree, mesh, cfg) -> Any:
+    """KV caches: batch over data (+pod), kv-heads over model if divisible,
+    else the sequence (sequence-parallel decode). Recurrent states: batch
+    over data, channels or head dims over model where divisible. A stacked
+    layer axis leads under ``layers/`` and on encdec's ``self_``/``cross_``
+    leaves."""
+    ba = batch_axes(mesh)
+    msize = axis_sizes(mesh).get("model", 1)
+
+    def leaf_spec(path: str, leaf) -> Spec:
+        shape = tuple(leaf.shape)
+        name = path.split("/")[-1]
+        lead = 1 if (path.startswith("layers/")
+                     or name.startswith(("self_", "cross_"))) else 0
+        spec: List[Any] = [None] * len(shape)
+        if _shardable(shape[lead], mesh, ba):
+            spec[lead] = _entry(ba)
+        elif _shardable(shape[lead], mesh, ("data",)):
+            spec[lead] = "data"
+        if name in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
+            kv_idx, s_idx = lead + 2, lead + 1
+            if shape[kv_idx] % msize == 0:
+                spec[kv_idx] = "model"
+            elif shape[s_idx] % msize == 0:
+                spec[s_idx] = "model"  # sequence-parallel cache
+        elif name == "state":  # SSD state (B, H, P, N)
+            for idx in (lead + 1, lead + 2):
+                if shape[idx] % msize == 0:
+                    spec[idx] = "model"
+                    break
+        elif name == "h":  # RG-LRU state (B, w)
+            if shape[lead + 1] % msize == 0:
+                spec[lead + 1] = "model"
+        elif name == "conv":  # (B, K-1, C)
+            if shape[lead + 2] % msize == 0:
+                spec[lead + 2] = "model"
+        return tuple(spec)
+
+    return _unflatten_like(cache_tree, {p: leaf_spec(p, x) for p, x in
+                                        tree_paths(cache_tree).items()})
+
+
+def out_pspecs_for(kind: str, mesh, cfg, in_specs, data_specs):
+    """Out specs are assembled per step type by the dry run, as in
+    ``repro``, which leaves this unimplemented too."""
+    raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# The multi-switch half: a mesh of torch devices
+# ---------------------------------------------------------------------------
 
 
 class Mesh:

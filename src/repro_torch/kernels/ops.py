@@ -142,7 +142,8 @@ def olaf_enqueue(state: TorchQueueState, clusters, workers, gen_times,
 
 def olaf_step(state: TorchQueueState, clusters, workers, gen_times, rewards,
               payloads, reward_threshold: float = math.inf, send=None,
-              capacity=None, active_workers=None, screen=None, *, k: int
+              capacity=None, active_workers=None, screen=None, *, k: int,
+              impl: str = "auto"
               ) -> Tuple[TorchQueueState, Dict[str, torch.Tensor]]:
     """Fused full-cycle data-plane step: burst enqueue → drain-k.
 
@@ -159,11 +160,26 @@ def olaf_step(state: TorchQueueState, clusters, workers, gen_times, rewards,
     On CUDA this is one :func:`~repro_torch.kernels.olaf_step.olaf_step_cuda`
     call, which updates the queue in place: treat the passed-in state as
     consumed, as ``repro``'s donating call does.
+
+    ``impl`` is ``repro``'s: ``"auto"`` routes by the device (the kernel
+    on a card, the plain version on the CPU), ``"xla"`` takes the plain
+    version on any device, and ``"pallas"`` the kernel, raising off a card.
     """
     dev = _device_of(*state.fields().values(), clusters, workers, gen_times,
                      rewards, payloads, send, capacity, active_workers,
                      screen)
-    step = _route("olaf_step", dev, olaf_step_cuda, olaf_step_plain)
+    if impl == "xla":
+        step = olaf_step_plain
+    elif impl == "pallas":
+        if dev.type != "cuda":
+            raise ValueError(f"olaf_step: impl='pallas' launches the CUDA "
+                             f"kernel, and the operands are on {dev}")
+        step = olaf_step_cuda
+    elif impl == "auto":
+        step = _route("olaf_step", dev, olaf_step_cuda, olaf_step_plain)
+    else:
+        raise ValueError(f"olaf_step: unknown impl {impl!r}: use auto, xla "
+                         f"or pallas")
     state, out = step(state, clusters, workers, gen_times, rewards, payloads,
                       k, reward_threshold, send, capacity, screen)
     if active_workers is not None:

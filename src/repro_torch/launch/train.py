@@ -16,9 +16,10 @@ exit as ``repro``'s do (their stub frontends have family-specific
 drivers). The scenario mode takes ``--sim-impl vectorized`` (and
 ``--sim-dt``); ``--sim-shards``/``--sim-worker-shards`` above 1 run it
 sharded over ``vecsim_mesh`` of the visible cards (the one CPU device with
-``--device cpu``), as ``repro``'s over ``jax.devices()``. There is no
-``--step-impl``: the tensors' device picks the ``olaf_step`` route
-(``kernels/ops.py``). Examples:
+``--device cpu``), as ``repro``'s over ``jax.devices()``. ``--step-impl``
+picks the PS step's ``olaf_step`` route as ``repro``'s does: ``auto`` by
+the device (``kernels/ops.py``), ``xla`` the plain version, ``pallas`` the
+CUDA kernel (raising off a card). Examples:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --reduced --mode olaf-async --workers 4 --steps 8 --device cpu
@@ -126,6 +127,7 @@ class PSConfig:
     screen_factor: float = 16.0
     robust_threshold: float = 0.25
     stale_bound: Optional[float] = None  # PS admission bound (virtual time)
+    step_impl: str = "auto"  # ops.olaf_step's route: auto | xla | pallas
 
 
 @dataclasses.dataclass
@@ -187,7 +189,7 @@ def ps_step(state: PSState, burst: Dict[str, torch.Tensor], *, cfg: PSConfig
     queue, out = ops.olaf_step(state.queue, clusters, workers, burst["times"],
                                burst["rewards"], payloads, math.inf, send,
                                None, burst.get("active"), screen,
-                               k=cfg.drain_k)
+                               k=cfg.drain_k, impl=cfg.step_impl)
     valid, n_stale = out["valid"], zero
     if cfg.stale_bound is not None:
         fresh = staleness_mask(now, out["gen_time"], cfg.stale_bound)
@@ -294,7 +296,8 @@ class OlafAsyncTrainer:
             screen=bool(getattr(args, "ingress_screen", False)),
             screen_factor=getattr(args, "screen_factor", 16.0),
             robust_threshold=getattr(args, "robust_threshold", 0.25),
-            stale_bound=getattr(args, "staleness_bound", 0.0) or None)
+            stale_bound=getattr(args, "staleness_bound", 0.0) or None,
+            step_impl=getattr(args, "step_impl", "auto"))
         self.shards = [SyntheticLM(DataConfig(
             vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
             n_shards=W, shard_id=i, seed=args.seed)) for i in range(W)]
@@ -618,6 +621,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--queue-slots", type=int, default=0,
                     help="queue capacity Q_max (0: max(workers, 4)); below "
                          "the cluster count arms the congestion gate")
+    ap.add_argument("--step-impl", default="auto",
+                    choices=["auto", "xla", "pallas"],
+                    help="the PS step's olaf_step: the CUDA kernel "
+                         "(pallas; raises off a card), the plain version "
+                         "(xla), or by the device (auto)")
     ap.add_argument("--txctl-threshold", type=float, default=0.5,
                     help="Δ̄_T of the send gate (virtual time)")
     ap.add_argument("--txctl-mode", default="fairness",

@@ -32,8 +32,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
-from repro_torch.models.module import (cast_tree, dtype_of, run_periods,
-                                       stack_draws)
+from repro_torch.models.module import (Draws, cast_tree, dtype_of,
+                                       run_periods, stack_draws)
 
 Params = Dict[str, Any]
 
@@ -68,12 +68,15 @@ def _init_dec_layer(gen, cfg: ArchConfig, dt):
             "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.act, dt)}
 
 
-def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> Params:
-    """Random weights at ``cfg``'s shapes, drawn from ``gen`` on its device."""
+def init_encdec(gen, cfg: ArchConfig, vocab_pad_multiple: int = 1, *,
+                device=None) -> Params:
+    """Random weights at ``cfg``'s shapes, drawn from ``gen`` onto
+    ``device`` as ``transformer.init_lm`` draws them."""
+    gen = Draws.of(gen, device)
     dt, d, dev = dtype_of(cfg.dtype), cfg.d_model, gen.device
     return {
-        "embedding": L.init_embedding(gen, cfg.vocab, d, dt,
-                                      cfg.tie_embeddings),
+        "embedding": L.init_embedding(gen, TF.padded_vocab(
+            cfg, vocab_pad_multiple), d, dt, cfg.tie_embeddings),
         "enc_layers": stack_draws(cfg.n_enc_layers,
                                   lambda: _init_enc_layer(gen, cfg, dt)),
         "dec_layers": stack_draws(cfg.n_layers,
@@ -128,7 +131,7 @@ def encode(params, frames, cfg: ArchConfig) -> torch.Tensor:
                              cfg, causal=False)
         return _mlp(p, h + a, cfg), None
 
-    x, _ = run_periods(body, x, params["enc_layers"])
+    x, _ = run_periods(body, x, params["enc_layers"], cfg=cfg)
     return L.apply_norm(cfg.norm, cast_tree(params["enc_final"], dt), x)
 
 
@@ -155,7 +158,7 @@ def _decoder(params, frames, tokens, cfg: ArchConfig):
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     x = _embed_dec(params, tokens, positions, cfg)
     x, caches = run_periods(lambda h, p: _dec_layer(p, h, enc_out, cfg), x,
-                            params["dec_layers"])
+                            params["dec_layers"], cfg=cfg)
     return L.apply_norm(cfg.norm, params["dec_final"], x), caches
 
 
@@ -216,7 +219,7 @@ def encdec_decode_step(params, caches, token, pos, cfg: ArchConfig):
                             c["cross_k"], c["cross_v"], cfg)
         return _mlp(p, h, cfg), None
 
-    x, _ = run_periods(body, x, (params["dec_layers"], caches))
+    x, _ = run_periods(body, x, (params["dec_layers"], caches), cfg=cfg)
     x = L.apply_norm(cfg.norm, params["dec_final"], x)
     logits = L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
     return logits[:, 0, :], caches

@@ -13,22 +13,88 @@ full-head layout (B, S, H, Dh) with KV heads expanded by a static gather
                    plain version on the CPU);
   * ``decode``   — single-query attention against a KV cache.
 
-``repro`` annotates activations with sharding constraints; on one device
-they are the identity and the port leaves them out (activation sharding
-comes with ROADMAP queue 1 item 8). All softmax/normalization accumulation
-is float32 whatever the activation dtype.
+``repro`` annotates activations with sharding constraints from logical
+dim labels (``constrain``). The port resolves the same labels to the same
+per-dim specs (:func:`constrain_spec`, :func:`head_label`,
+:func:`residual_dims`); on one device a constraint is the identity, so
+:func:`constrain` returns its input and the model code does not call it
+(applying the specs waits for the multi-process launcher, ROADMAP queue 1
+item 9). All softmax/normalization accumulation is float32 whatever the
+activation dtype.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.module import dense_init, normal
+from repro_torch.models.module import Draws, dense_init, normal
+
+
+# --------------------------------------------------------------------------
+# Activation sharding constraints (the specs only)
+# --------------------------------------------------------------------------
+def constrain_spec(shape: Sequence[int], cfg, dims: Sequence[Optional[str]]
+                   ) -> Optional[Tuple]:
+    """``repro``'s ``constrain`` spec for a tensor of ``shape``: one entry
+    per dim, ``None``, a mesh axis name or a tuple of names, from the
+    labels ``dims``: "batch" (pod+data, else data, else None), "tp" (model
+    where divisible), "fsdp" (data where divisible), "sp" (model, where
+    ``cfg.seq_shard_acts`` and divisible), None. Each mesh axis at most
+    once per tensor. ``None`` (no constraint) unless ``cfg.shard_acts``
+    and ``cfg.mesh_axes`` are set."""
+    if not getattr(cfg, "shard_acts", False) or not cfg.mesh_axes:
+        return None
+    sizes = dict(cfg.mesh_axes)
+    spec, used = [], set()
+
+    def fits(size, n):
+        return size % n == 0 and size >= n
+
+    for label, size in zip(dims, shape):
+        entry = None
+        if label == "batch" and "data" not in used:
+            ba = tuple(a for a in ("pod", "data") if a in sizes)
+            n = int(np.prod([sizes[a] for a in ba])) if ba else 1
+            if ba and fits(size, n):
+                entry = ba if len(ba) > 1 else ba[0]
+            elif "data" in sizes and fits(size, sizes["data"]):
+                entry = "data"
+        elif label in ("tp", "sp") and "model" not in used:
+            ok = fits(size, sizes.get("model", 1))
+            if label == "sp":
+                ok = ok and getattr(cfg, "seq_shard_acts", False)
+            entry = "model" if ok else None
+        elif label == "fsdp" and "data" not in used:
+            entry = "data" if fits(size, sizes.get("data", 1)) else None
+        if entry is not None:
+            used.update((entry,) if isinstance(entry, str) else entry)
+        spec.append(entry)
+    return tuple(spec)
+
+
+def constrain(x: torch.Tensor, cfg, dims: Sequence[Optional[str]]
+              ) -> torch.Tensor:
+    """The identity: on one device a sharding constraint changes nothing.
+    Its spec is :func:`constrain_spec`."""
+    return x
+
+
+def head_label(cfg) -> Optional[str]:
+    """Sharding label for the attention-head dim under the current mode."""
+    return "tp" if cfg.attn_mode in ("head", "padded") else None
+
+
+def residual_dims(cfg, seq_len: int):
+    """Residual-stream constraint labels: decode (seq 1) shards d_model
+    over data; otherwise the sequence over model (sequence parallel)."""
+    if seq_len == 1:
+        return ("batch", None, "fsdp")
+    return ("batch", "sp", None)
 
 
 # --------------------------------------------------------------------------
@@ -107,7 +173,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # --------------------------------------------------------------------------
 # Attention
 # --------------------------------------------------------------------------
-def init_attention(gen: torch.Generator, cfg, dtype):
+def init_attention(gen: Draws, cfg, dtype):
     """Q/O padded to cfg.padded_heads (zero rows keep the math exact)."""
     d, H, Hp, KV, Dh = (cfg.d_model, cfg.n_heads, cfg.padded_heads,
                         cfg.n_kv_heads, cfg.hd)
@@ -286,7 +352,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
-def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str, dtype):
+def init_mlp(gen: Draws, d_model: int, d_ff: int, act: str, dtype):
     if act in ("silu", "geglu"):  # gated: gate + up + down
         return {"wg": dense_init(gen, d_model, (d_ff,), dtype),
                 "wu": dense_init(gen, d_model, (d_ff,), dtype),
@@ -312,7 +378,7 @@ def apply_mlp(p, x, act: str):
 # --------------------------------------------------------------------------
 # Embedding / unembedding
 # --------------------------------------------------------------------------
-def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype,
+def init_embedding(gen: Draws, vocab: int, d_model: int, dtype,
                    tie: bool):
     # GPT-style 0.02 std keeps tied-unembed logits O(1) at init
     p = {"embed": normal(gen, (vocab, d_model), 0.02, dtype)}

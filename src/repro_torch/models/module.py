@@ -3,12 +3,16 @@
 Params are plain nested dicts of tensors; a layer stack stores its params
 with a leading ``L`` axis, as ``repro`` does, so a checkpoint of one
 package maps key for key onto the other. ``repro`` scans over that axis;
-the port loops over it in Python (:func:`run_periods`), with no remat:
-serving needs neither.
+the port loops over it in Python (:func:`run_periods`), each period under
+``cfg``'s activation checkpointing (``remat``, ``remat_policy``) while
+autograd records.
 
 Draws come from a ``torch.Generator`` with ``repro``'s distributions; the
 bits differ from ``jax.random``'s (ROADMAP hazard H3), so parity tests
 carry ``repro``'s weights across with ``transformer.params_from_jax``.
+A :class:`Draws` pairs the generator with the device the weights land on,
+which is the generator's own or the meta device (``api.param_spec``
+builds every shape there with no allocation).
 
 :func:`tree_leaves` walks a tree in ``jax.tree_util``'s order (a dict's
 keys sorted, a dataclass's fields in order, ``None`` no leaf), which is the
@@ -19,11 +23,14 @@ dict's insertion order and names leaves by path.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 Params = Dict[str, Any]
 
@@ -33,14 +40,30 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    """``std`` · N(0, 1) drawn in float32 on ``gen``'s device, then cast."""
-    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+class Draws(NamedTuple):
+    """The random source of an init: ``generator`` draws, and the tensors
+    land on ``device``, the generator's own device or the meta device (a
+    ``torch.Generator`` cannot live there; a meta draw allocates nothing
+    and leaves the generator as it was)."""
+
+    generator: torch.Generator
+    device: torch.device
+
+    @classmethod
+    def of(cls, gen: torch.Generator, device=None) -> "Draws":
+        """``gen``'s draws on ``device`` (default: the generator's)."""
+        return cls(gen, torch.device(device) if device is not None
+                   else gen.device)
+
+
+def normal(gen: Draws, shape, std: float, dtype) -> torch.Tensor:
+    """``std`` · N(0, 1) drawn in float32 on ``gen.device``, then cast."""
+    x = torch.randn(tuple(shape), generator=gen.generator,
+                    dtype=torch.float32, device=gen.device)
     return (std * x).to(dtype)
 
 
-def dense_init(gen: torch.Generator, in_dim: int, out_shape, dtype,
+def dense_init(gen: Draws, in_dim: int, out_shape, dtype,
                std: Optional[float] = None) -> torch.Tensor:
     """Weight of shape (in_dim, *out_shape), fan-in scaled."""
     if std is None:
@@ -76,16 +99,59 @@ def stack_draws(n: int, make: Callable[[], Params]) -> Params:
     return out
 
 
-def run_periods(body: Callable, carry, stacked_params: Params):
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` over
+    aten ops: keep the output of a product with no batch dims, recompute
+    the rest. ``torch.einsum`` lowers a weight product ("bsd,df->bsf") to
+    ``bmm`` over a unit batch and an attention product ("bqhd,bshd->bhqs")
+    or an expert product to ``bmm`` over B·H or E, so a ``bmm`` counts as
+    batch-free when its batch is 1 (an attention over one row and one
+    head is kept too, where ``repro`` would recompute it)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(body: Callable, cfg) -> Callable:
+    """``body`` under ``cfg``'s activation checkpointing, ``repro``'s
+    ``_remat_wrap``: ``full`` recomputes the whole period in the backward
+    (``torch.utils.checkpoint``, non-reentrant), ``dots`` keeps the outputs
+    of the products with no batch dims (:func:`_save_dots`) and recomputes
+    the rest. The body itself where ``cfg`` is None, ``cfg.remat`` is off,
+    the policy is ``none``, or autograd records nothing (``torch.no_grad``,
+    ``torch.inference_mode``: serving and decode never enter
+    ``checkpoint``). ``repro`` also pins the saved carry behind
+    ``lax.optimization_barrier`` so XLA cannot hoist a cast of the whole
+    saved stack; eager PyTorch hoists nothing and has no counterpart."""
+    policy = getattr(cfg, "remat_policy", "full")
+    if (not getattr(cfg, "remat", False) or policy == "none"
+            or not torch.is_grad_enabled()):
+        return body
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda c, p: checkpoint(body, c, p, use_reentrant=False,
+                                       context_fn=ctx)
+    if policy != "full":
+        raise ValueError(f"unknown remat_policy {policy!r}: "
+                         f"use full, dots or none")
+    return lambda c, p: checkpoint(body, c, p, use_reentrant=False)
+
+
+def run_periods(body: Callable, carry, stacked_params: Params, *, cfg=None):
     """Loop ``body(carry, period_params) -> (carry, out)`` over the leading
     axis of ``stacked_params`` (a dict, or a tuple of dicts sliced
-    together). Returns ``(carry, outs)`` with ``outs`` stacked on a new
-    leading axis, or ``None`` when the body returns ``None``."""
+    together), each period under ``cfg``'s remat policy
+    (:func:`remat_wrap`). Returns ``(carry, outs)`` with ``outs`` stacked
+    on a new leading axis, or ``None`` when the body returns ``None``."""
     leaves = list(tree_paths(stacked_params).values())
     n = leaves[0].shape[0] if leaves else 0
+    fn = remat_wrap(body, cfg)
     ys = []
     for i in range(n):
-        carry, y = body(carry, tree_map(lambda x: x[i], stacked_params))
+        carry, y = fn(carry, tree_map(lambda x: x[i], stacked_params))
         ys.append(y)
     if not ys or ys[0] is None:
         return carry, None

@@ -28,19 +28,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _gelu, apply_mlp, init_mlp
-from repro_torch.models.module import dense_init
+from repro_torch.models.module import Draws, dense_init, normal
 
 
-def _stacked(gen: torch.Generator, n: int, in_dim: int, out_dim: int, dtype):
+def _stacked(gen: Draws, n: int, in_dim: int, out_dim: int, dtype):
     """(n, in_dim, out_dim) fan-in scaled weights, one expert drawn at a time
-    (so the float32 draw of a whole stack never sits on the device)."""
+    (so the float32 draw of a whole stack never sits on the device; on the
+    meta device, which holds nothing, in one draw)."""
+    if gen.device.type == "meta":
+        return normal(gen, (n, in_dim, out_dim), 1.0 / math.sqrt(in_dim),
+                      dtype)
     w = torch.empty((n, in_dim, out_dim), dtype=dtype, device=gen.device)
     for e in range(n):
         w[e] = dense_init(gen, in_dim, (out_dim,), dtype)
     return w
 
 
-def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+def init_moe(gen: Draws, d_model: int, d_ff: int, n_experts: int,
              act: str, dtype, dense_residual: bool):
     p = {"router": dense_init(gen, d_model, (n_experts,), torch.float32),
          # per-expert weights stacked on a leading E axis, as ``repro``

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import _gelu, causal_conv, softplus
-from repro_torch.models.module import dense_init, normal
+from repro_torch.models.module import Draws, dense_init, normal
 
 _C = 8.0
 
@@ -33,7 +33,7 @@ def lru_width_of(cfg) -> int:
     return cfg.lru_width or cfg.d_model
 
 
-def init_rglru_block(gen: torch.Generator, cfg, dtype):
+def init_rglru_block(gen: Draws, cfg, dtype):
     d, w, dev = cfg.d_model, lru_width_of(cfg), gen.device
     # Λ so that a ∈ (0.9, 0.999) at r = 1 (griffin init), drawn as ``repro``
     # draws it, from numpy's generator seeded 0

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import causal_conv, softplus
-from repro_torch.models.module import dense_init, normal
+from repro_torch.models.module import Draws, dense_init, normal
 
 
 def ssm_dims(cfg) -> Dict[str, int]:
@@ -37,7 +37,7 @@ def ssm_dims(cfg) -> Dict[str, int]:
     )
 
 
-def init_ssm_block(gen: torch.Generator, cfg, dtype):
+def init_ssm_block(gen: Draws, cfg, dtype):
     dm = ssm_dims(cfg)
     d, di, H, N, G = (cfg.d_model, dm["d_inner"], dm["nheads"], dm["dstate"],
                       dm["ngroups"])

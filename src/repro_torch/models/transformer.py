@@ -5,7 +5,9 @@ Layers are grouped into repeating periods (dense: period 1, ``["attn"]``;
 recurrentgemma: period 3, ``["rec", "rec", "attn"]``) whose params are
 stacked on a leading axis, key for key as ``repro``
 (``params["layers"]["sub_0"]``); the port loops over the periods in Python,
-and the layers left over (38 = 12·3 + 2) follow as ``params["tail"]``.
+each under ``cfg``'s remat policy (``module.run_periods``), and the layers
+left over (38 = 12·3 + 2) follow as ``params["tail"]``, without remat, as
+in ``repro``.
 Layer kinds: ``attn`` (attention + MLP), ``moe`` (attention + the
 mixture-of-experts FFN, :mod:`~repro_torch.models.moe`), ``rec`` (the
 RG-LRU block + MLP, :mod:`~repro_torch.models.rglru`) and ``ssm`` (the
@@ -48,8 +50,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
-from repro_torch.models.module import (dense_init, dtype_of, run_periods,
-                                       stack_draws, tree_map)
+from repro_torch.models.module import (Draws, dense_init, dtype_of,
+                                       run_periods, stack_draws, tree_map)
 from repro_torch.optim.optimizers import OptState
 
 Params = Dict[str, Any]
@@ -71,10 +73,14 @@ def layer_plan(cfg: ArchConfig) -> List[str]:
     raise ValueError(cfg.family)
 
 
+def period_len(cfg: ArchConfig) -> int:
+    return len(cfg.block_pattern) if cfg.block_pattern else 1
+
+
 def split_plan(cfg: ArchConfig) -> Tuple[List[str], int, List[str]]:
     """(period_plan, n_stacked_periods, tail_plan)."""
     plan = layer_plan(cfg)
-    per = len(cfg.block_pattern) if cfg.block_pattern else 1
+    per = period_len(cfg)
     n_full = cfg.n_layers // per
     return plan[:per], n_full, plan[n_full * per:]
 
@@ -87,7 +93,7 @@ def _attn_window(cfg: ArchConfig, kind: str) -> int:
     return cfg.window if (cfg.family == "hybrid" and kind == "attn") else 0
 
 
-def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Params:
+def init_layer(gen: Draws, cfg: ArchConfig, kind: str) -> Params:
     dt, d, dev = dtype_of(cfg.dtype), cfg.d_model, gen.device
     if kind in ("attn", "moe"):
         p = {"ln1": L.init_norm(cfg.norm, d, dt, dev),
@@ -110,14 +116,24 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Params:
     raise ValueError(kind)
 
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
-    """Random weights at ``cfg``'s shapes, drawn from ``gen`` on its device
-    (``repro``'s vocabulary padding for sharding is left out: one device)."""
+def padded_vocab(cfg: ArchConfig, multiple: int) -> int:
+    """The vocabulary rounded up to ``multiple`` (the model axis, so the
+    embedding shards; ``unembed`` masks the padded logits)."""
+    return -(-cfg.vocab // multiple) * multiple
+
+
+def init_lm(gen, cfg: ArchConfig, vocab_pad_multiple: int = 1, *,
+            device=None) -> Params:
+    """Random weights at ``cfg``'s shapes, drawn from ``gen`` onto
+    ``device`` (default: the generator's device; ``"meta"`` allocates
+    nothing), with the vocabulary padded to ``vocab_pad_multiple``."""
+    gen = Draws.of(gen, device)
     dt = dtype_of(cfg.dtype)
     period_plan, n_full, tail = split_plan(cfg)
     params: Params = {
-        "embedding": L.init_embedding(gen, cfg.vocab, cfg.d_model, dt,
-                                      cfg.tie_embeddings),
+        "embedding": L.init_embedding(gen, padded_vocab(cfg,
+                                                        vocab_pad_multiple),
+                                      cfg.d_model, dt, cfg.tie_embeddings),
         "final_norm": L.init_norm(cfg.norm, cfg.d_model, dt, gen.device),
     }
     params["layers"] = stack_draws(n_full, lambda: {
@@ -352,7 +368,7 @@ def lm_forward(params, tokens, cfg: ArchConfig, patches=None) -> torch.Tensor:
             h = apply_layer_train(pp[f"sub_{i}"], h, cfg, kind, positions)
         return h, None
 
-    x, _ = run_periods(period_body, x, params["layers"])
+    x, _ = run_periods(period_body, x, params["layers"], cfg=cfg)
     for i, kind in enumerate(tail_plan):
         x = apply_layer_train(params["tail"][f"layer_{i}"], x, cfg, kind,
                               positions)
@@ -382,7 +398,7 @@ def lm_prefill(params, tokens, cfg: ArchConfig, patches=None):
                                                         cfg, kind, positions)
         return h, caches
 
-    x, stacked = run_periods(period_body, x, params["layers"])
+    x, stacked = run_periods(period_body, x, params["layers"], cfg=cfg)
     caches: Params = {"layers": stacked}
     if tail_plan:
         caches["tail"] = {}
@@ -407,7 +423,8 @@ def lm_decode_step(params, caches, token, pos, cfg: ArchConfig):
                                       cfg, kind)
         return h, None
 
-    x, _ = run_periods(period_body, x, (params["layers"], caches["layers"]))
+    x, _ = run_periods(period_body, x, (params["layers"], caches["layers"]),
+                       cfg=cfg)
     for i, kind in enumerate(tail_plan):
         x, _ = apply_layer_decode(params["tail"][f"layer_{i}"], x,
                                   caches["tail"][f"layer_{i}"], pos, cfg, kind)

@@ -7,9 +7,8 @@ Plain functions of tensors that return a new tree and a new state, as
 including the skipped step: with clipping on, a non-finite global norm
 zeroes the whole gradient, and non-finite elements are zeroed. The global
 norm sums the leaves in ``jax.tree_util``'s order (sorted keys,
-:func:`repro_torch.models.module.tree_leaves`). ``repro``'s
-``opt_state_pspecs`` (TPU sharding specs) has no counterpart here (ROADMAP
-queue 1 item 8).
+:func:`repro_torch.models.module.tree_leaves`). :func:`opt_state_pspecs`
+gives the state's per-dim sharding specs, those of its params.
 """
 from __future__ import annotations
 
@@ -96,3 +95,10 @@ def apply_updates(params, grads, state: OptState, cfg: OptConfig
         lambda p, m_: (p.to(torch.float32) - cfg.lr * m_).to(p.dtype),
         params, m)
     return new_params, OptState(step=step, m=m, v=None)
+
+
+def opt_state_pspecs(param_specs, cfg: OptConfig) -> OptState:
+    """The state's specs (``distributed.sharding``'s per-dim tuples): each
+    moment sharded like its param, ``step`` (0-dim) replicated."""
+    return OptState(step=(), m=param_specs,
+                    v=param_specs if cfg.kind == "adamw" else None)

@@ -552,6 +552,32 @@ def test_reduced_olaf_async_on_the_card_equals_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_step_impl_xla_launches_no_kernel_on_the_card(cuda_device):
+    """``--step-impl xla`` takes the plain ``olaf_step`` on the card: no
+    launch, and every counter and queue field equal to the kernel run's
+    (``pallas``, one launch per PS step); losses within rtol 1e-4."""
+    from repro_torch.launch import train
+    olaf_step_cuda.launches = 0
+    kernel = train.main(TRAIN_ARGV + ["--step-impl", "pallas"])
+    torch.cuda.synchronize()
+    assert olaf_step_cuda.launches == 8
+    olaf_step_cuda.launches = 0
+    plain = train.main(TRAIN_ARGV + ["--step-impl", "xla"])
+    torch.cuda.synchronize()
+    assert olaf_step_cuda.launches == 0
+    for f in ("deferred_total", "stale_total", "screened_total"):
+        assert getattr(kernel, f) == getattr(plain, f), f
+    assert [c for _, _, c in kernel.log_rows] \
+        == [c for _, _, c in plain.log_rows]
+    for f in ("cluster", "worker", "seq", "agg_count", "next_seq", "n_agg",
+              "n_repl", "n_dropped", "n_screened"):
+        assert torch.equal(getattr(kernel.state.queue, f),
+                           getattr(plain.state.queue, f)), f
+    np.testing.assert_allclose([l for _, l, _ in kernel.log_rows],
+                               [l for _, l, _ in plain.log_rows], rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_ps_step_makes_no_host_sync(cuda_device):
     """``ps_step`` on the card (screen, staleness bound, churn mask, the
     trimmed branch) runs under ``set_sync_debug_mode("error")``: no call in

@@ -582,7 +582,7 @@ def _run(fn, *a):
 def test_olaf_async_cli_matches_repro(same_init):
     args = train.build_parser().parse_args(ASYNC_ARGV)
     got, text_p = _run(train.main, ASYNC_ARGV)
-    jargs = argparse.Namespace(**vars(args), step_impl="xla")
+    jargs = argparse.Namespace(**{**vars(args), "step_impl": "xla"})
     want, text_j = _run(jax_train.run_olaf_async,
                         jax_get_config(ARCH).reduced(), jargs)
     (lp, fp), counters_p = _summary(text_p)
@@ -684,3 +684,29 @@ def test_repro_checkpoint_restores_in_the_port(tmp_path, jax_params):
                     jax.tree_util.tree_leaves((pj2, oj2))):
         np.testing.assert_array_equal(np.asarray(a, np.float32),
                                       np.asarray(b, np.float32))
+
+
+# --------------------------------------------------------------------------
+# --step-impl: repro's flag and meaning
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("impl", ["auto", "xla", "pallas"])
+def test_step_impl_flag_is_parsed(impl):
+    args = train.build_parser().parse_args(ASYNC_ARGV + ["--step-impl", impl])
+    assert args.step_impl == impl
+
+
+def test_step_impl_defaults_to_auto_and_refuses_other_names():
+    assert train.build_parser().parse_args(ASYNC_ARGV).step_impl == "auto"
+    with contextlib.redirect_stderr(io.StringIO()), \
+            pytest.raises(SystemExit):
+        train.build_parser().parse_args(ASYNC_ARGV + ["--step-impl", "cuda"])
+
+
+def test_step_impl_xla_is_the_cpu_route_and_pallas_raises_off_a_card():
+    auto, _ = _run(train.main, ASYNC_ARGV)
+    xla, _ = _run(train.main, ASYNC_ARGV + ["--step-impl", "xla"])
+    assert xla.log_rows == auto.log_rows
+    for f, v in auto.state.queue.fields().items():
+        assert torch.equal(getattr(xla.state.queue, f), v), f
+    with pytest.raises(ValueError, match="impl='pallas'"):
+        _run(train.main, ASYNC_ARGV + ["--step-impl", "pallas"])
