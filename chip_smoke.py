@@ -40,9 +40,14 @@ launch per shard, ``olaf_step_sharded`` with one ``olaf_step`` launch per
 shard; on a one-card host every shard runs on that card), activation
 checkpointing (``[remat]``: the full-width olaf-async run under
 ``remat_policy`` none, full and dots, counters equal, peak memory and step
-wall each), and the dry-run tooling (``[dryrun]``: ``launch.dryrun --all``
-on the meta device, then its predicted argument bytes for smollm-360m at
-the ``[train]`` shape against the tensors the trainer holds on the card).
+wall each), and the dry-run tooling (``[dryrun]``: ``launch.dryrun --all
+--fast`` on the meta device; the sharded pass of one cell per family on
+the 16 × 16 mesh over a fake process group, one process each, with their
+per-device ``temp_bytes`` and collective bytes by kind; then for
+smollm-360m at the ``[train]`` shape on a (1, 1) mesh the predicted
+argument bytes against the tensors the trainer holds on the card, and the
+predicted peak, argument + temp bytes, against the sync step's
+``max_memory_allocated``).
 The attention kernels are held to their plain versions in both the
 folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one, and
 timed beside SDPA. It prints each kernel's ptxas registers and spills,
@@ -65,6 +70,7 @@ import inspect
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -103,6 +109,7 @@ from repro_torch.examples import lm_train as example_lm_train  # noqa: E402
 from repro_torch.examples import quickstart as example_quickstart  # noqa: E402
 from repro_torch.examples import serve_decode as example_serve_decode  # noqa: E402
 from repro_torch.optim import compress  # noqa: E402
+from repro_torch.optim.optimizers import OptConfig  # noqa: E402
 from repro_torch.models.module import tree_leaves  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.models import module as lm_module  # noqa: E402
@@ -2339,62 +2346,141 @@ class BatchCapture:
         return False
 
 
-def dryrun_phase(dev) -> dict:
-    """``python -m repro_torch.launch.dryrun --all`` over both meshes on the
-    meta device (its summary line and seconds), then smollm-360m at the
-    ``[train]`` shape on a (1, 1) mesh: the predicted argument bytes
-    (params, AdamW m/v, step, one batch) against the summed ``nbytes`` of
-    the same tensors as ``launch.train --mode sync`` holds them on the
-    card."""
+DRYRUN_CELLS = [("smollm-360m", "train_4k"), ("grok-1-314b", "decode_32k"),
+                ("mamba2-130m", "prefill_32k"),
+                ("recurrentgemma-9b", "decode_32k"),
+                ("internvl2-76b", "prefill_32k"),
+                ("whisper-small", "decode_32k")]
+
+
+def _sync_opt() -> OptConfig:
+    """The optimizer ``launch.train --mode sync`` steps with at its default
+    ``--lr`` (``DRYRUN_SYNC`` sets none)."""
+    return OptConfig(lr=launch_train.build_parser().get_default("lr"),
+                     grad_clip=1.0)
+
+
+def dryrun_phase(dev, smi: str) -> dict:
+    """The dry run. One process per family runs ``python -m
+    repro_torch.launch.dryrun`` on one cell (``DRYRUN_CELLS``) of the 16 ×
+    16 mesh, its sharded pass on a fake process group (per-device
+    ``temp_bytes``, collective bytes by kind); meanwhile, here, the fast
+    pass over every cell of both meshes (``--all --fast``: its summary line
+    and seconds), then smollm-360m at the ``[train]`` shape on a (1, 1)
+    mesh: the predicted argument bytes (params, AdamW m/v, step, one batch)
+    against the summed ``nbytes`` of the same tensors as ``launch.train
+    --mode sync`` holds them on the card, and the predicted peak (argument
+    + temp bytes of the sharded pass) against the step's
+    ``torch.cuda.max_memory_allocated``."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
-        text = io.StringIO()
-        with contextlib.redirect_stdout(text):
-            rc = dryrun.main(["--all", "--out", out_dir])
-        n_records = len(list(pathlib.Path(out_dir).glob("*.json")))
-    sweep_s = time.perf_counter() - t0
-    summary = [ln for ln in text.getvalue().splitlines()
-               if ln.startswith("dry-run summary")]
-    require(rc == 0 and summary and n_records == 80,
-            f"dryrun sweep: rc {rc}, {n_records} records, {summary}")
-    log(f"[dryrun] --all, both meshes, on the meta device: {summary[0]} in "
-        f"{sweep_s:.1f} s")
-    fit = dryrun.memory_fit(get_config("smollm-360m"), DRYRUN_SHAPE,
-                            make_host_mesh(1, 1))
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    with BatchCapture() as cap:
-        res = launch_train.main(DRYRUN_SYNC)
-        torch.cuda.synchronize()
-    counts = read_counts()
-    allocated = torch.cuda.memory_allocated() - held
-    peak = torch.cuda.max_memory_allocated() - held
-    parts = dict(params=tree_leaves(res.params),
-                 opt_state=tree_leaves(res.opt_state),
-                 inputs=list(cap.batch.values()))
-    on_card = {k: sum(x.nbytes for x in v) for k, v in parts.items()}
-    require(all(x.device.type == "cuda" for v in parts.values() for x in v),
-            "dryrun: the trainer's tensors are not on the card")
-    require(sum(on_card.values()) == fit["argument_bytes"]
-            and on_card == fit["arguments"],
-            f"dryrun: predicted {fit['arguments']} B, the trainer holds "
-            f"{on_card} B")
-    log(f"[dryrun] smollm-360m train seq {DRYRUN_SHAPE.seq_len} batch "
-        f"{DRYRUN_SHAPE.global_batch} on a (1, 1) mesh: "
-        f"predicted argument bytes {fit['argument_bytes']} ({fit['arguments']})"
-        f" equal the trainer's tensors on the card ({on_card}); output "
-        f"{fit['output_bytes']} B; memory_allocated after the sync step "
-        f"{allocated} B, its peak {peak} B ({peak / 2**30:.2f} GiB; the "
-        f"prediction's lower bound {fit['per_device_lower_bound'] / 2**30:.2f}"
-        f" GiB leaves out activations and gradients); phase wall "
-        f"{time.perf_counter() - t0:.1f} s")
-    del res, parts, cap
-    torch.cuda.empty_cache()
+        cell_dir = pathlib.Path(out_dir) / "cells"
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=str(pathlib.Path(__file__).resolve().parent
+                                  / "src"))
+        cells = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", s, "--single-pod", "--out", str(cell_dir)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for a, s in DRYRUN_CELLS]
+        try:
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = dryrun.main(["--all", "--fast", "--out", out_dir])
+            n_records = len(list(pathlib.Path(out_dir).glob("*.json")))
+            sweep_s = time.perf_counter() - t0
+            summary = [ln for ln in text.getvalue().splitlines()
+                       if ln.startswith("dry-run summary")]
+            require(rc == 0 and summary and n_records == 80,
+                    f"dryrun sweep: rc {rc}, {n_records} records, {summary}")
+            log(f"[dryrun] --all --fast, both meshes, on the meta device: "
+                f"{summary[0]} in {sweep_s:.1f} s")
+            one = make_host_mesh(1, 1)
+            cfg = get_config("smollm-360m")
+            opt = _sync_opt()
+            fit = dryrun.memory_fit(cfg, DRYRUN_SHAPE, one, opt)
+            t1 = time.perf_counter()
+            pred = dryrun.sharded_probes(cfg, DRYRUN_SHAPE, one, opt)
+            pred_s = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with BatchCapture() as cap:
+                res = launch_train.main(DRYRUN_SYNC)
+                torch.cuda.synchronize()
+            counts = read_counts()
+            allocated = torch.cuda.memory_allocated() - held
+            peak = torch.cuda.max_memory_allocated() - held
+            parts = dict(params=tree_leaves(res.params),
+                         opt_state=tree_leaves(res.opt_state),
+                         inputs=list(cap.batch.values()))
+            on_card = {k: sum(x.nbytes for x in v) for k, v in parts.items()}
+            require(all(x.device.type == "cuda" for v in parts.values()
+                        for x in v),
+                    "dryrun: the trainer's tensors are not on the card")
+            require(sum(on_card.values()) == fit["argument_bytes"]
+                    and on_card == fit["arguments"],
+                    f"dryrun: predicted {fit['arguments']} B, the trainer "
+                    f"holds {on_card} B")
+            predicted = fit["argument_bytes"] + pred["temp_bytes"]
+            require(pred["temp_bytes"] > 0
+                    and pred["collectives"]["total_bytes"] == 0,
+                    f"dryrun: (1, 1) sharded pass {pred}")
+            log(f"[dryrun] smollm-360m train seq {DRYRUN_SHAPE.seq_len} batch "
+                f"{DRYRUN_SHAPE.global_batch} on a (1, 1) mesh ({smi}): "
+                f"predicted argument bytes {fit['argument_bytes']} "
+                f"({fit['arguments']}) equal the trainer's tensors on the "
+                f"card ({on_card}); predicted temp {pred['temp_bytes']} B "
+                f"(probes {pred['probes']}, {pred_s:.1f} s), so a peak of "
+                f"argument + temp {predicted} B ({predicted / 2**30:.2f} GiB);"
+                f" the sync step's max_memory_allocated {peak} B "
+                f"({peak / 2**30:.2f} GiB): gap {peak - predicted} B "
+                f"({(peak - predicted) / 2**30:+.2f} GiB, "
+                f"{(peak - predicted) / peak:+.1%} of the measured); "
+                f"memory_allocated after it {allocated} B")
+            del res, parts, cap
+            torch.cuda.empty_cache()
+            records = {}
+            for (a, s), proc in zip(DRYRUN_CELLS, cells):
+                out, _ = proc.communicate(timeout=900)
+                path = cell_dir / f"{a}__{s}__pod_16x16.json"
+                require(proc.returncode == 0 and path.exists(),
+                        f"dryrun {a} {s}: rc {proc.returncode}: "
+                        f"{out[-2000:]}")
+                rec = json.loads(path.read_text())
+                mem, coll = rec["memory"], rec["collectives"]
+                require(rec["status"] == "ok" and mem["temp_bytes"] > 0
+                        and mem["per_device_total"] == (
+                            mem["argument_bytes"] + mem["output_bytes"]
+                            + mem["temp_bytes"])
+                        and set(coll["per_kind"]) >= {
+                            "all-gather", "all-reduce", "reduce-scatter",
+                            "all-to-all", "collective-permute"},
+                        f"dryrun {a} {s}: {rec}")
+                records[f"{a} {s}"] = dict(
+                    temp_bytes=mem["temp_bytes"],
+                    per_device_total=mem["per_device_total"],
+                    fits=mem["fits_h100_80gb"], collectives=coll["per_kind"],
+                    seconds=rec["sharded"]["seconds"])
+                log(f"[dryrun] {a} {s} pod_16x16 (sharded pass, probes "
+                    f"{rec['sharded']['probes']}, "
+                    f"{rec['sharded']['seconds']:.1f} s): per device "
+                    f"argument {mem['argument_bytes']} B, output "
+                    f"{mem['output_bytes']} B, temp {mem['temp_bytes']} B, "
+                    f"total {mem['per_device_total']} B (fits 80 GiB: "
+                    f"{mem['fits_h100_80gb']}); collectives "
+                    f"{coll['total_bytes']} B: " + ", ".join(
+                        f"{k} {v}" for k, v in coll["per_kind"].items()))
+        finally:
+            for proc in cells:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    log(f"[dryrun] phase wall {time.perf_counter() - t0:.1f} s")
     return dict(counts=counts, sweep_s=sweep_s, summary=summary[0],
-                predicted=fit["argument_bytes"], allocated=allocated,
-                peak=peak)
+                predicted=predicted, allocated=allocated, peak=peak,
+                cells=records)
 
 
 # ---------------------------------------------------------------------------
@@ -3395,7 +3481,7 @@ def main() -> int:
 
     # ---- 4f'. activation checkpointing; the dry run ------------------------
     remat = remat_phase(dev)
-    dry = dryrun_phase(dev)
+    dry = dryrun_phase(dev, smi)
 
     # ---- 4g. the other families: moe, ssm, hybrid, vlm, encdec -----------
     families = families_phase(dev, smi)

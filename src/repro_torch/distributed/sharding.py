@@ -1,20 +1,24 @@
 """Logical-axis sharding rules, and multi-switch (S-axis) sharding over a
 mesh of torch devices: the counterpart of ``repro/distributed/sharding.py``.
 
-**The spec half** (``_PARAM_RULES`` to ``out_pspecs_for``): ``repro``'s
+**The spec half** (``_PARAM_RULES`` to ``fake_device_mesh``): ``repro``'s
 MaxText-style rules for params, inputs and caches on the production mesh
 (``data`` 16 × ``model`` 16, optionally ``pod`` 2): batch over
 ("pod","data"); params FSDP over ``data`` on the d_model dim and TP over
 ``model`` on one output dim, with divisibility-checked fallbacks; KV
 caches batch over ``data`` and kv-heads (else the sequence) over
 ``model``. Here they are a resolver over axis sizes (a mapping of axis
-name to size, or anything with ``axis_names`` and ``devices.shape``),
-which returns one tuple per tensor dim, each entry ``None``, an axis name
-or a tuple of names: ``repro``'s ``PartitionSpec`` padded with ``None`` to
-the tensor's rank. Nothing applies them yet: ``repro``'s ``to_named`` (a
-``NamedSharding``) waits for the multi-process launcher (ROADMAP queue 1
-item 9). ``launch/dryrun.py`` reads them to divide each tensor's bytes
-over the devices.
+name to size, anything with ``axis_names`` and ``devices.shape``, or a
+torch ``DeviceMesh``), which returns one tuple per tensor dim, each entry
+``None``, an axis name or a tuple of names: ``repro``'s ``PartitionSpec``
+padded with ``None`` to the tensor's rank. :func:`to_placements` turns a
+spec into DTensor placements (``Shard(dim)`` or ``Replicate()`` per mesh
+axis) and :func:`to_named` places a tree by a spec tree, ``repro``'s
+``to_named`` (a ``NamedSharding`` per leaf). :func:`fake_device_mesh`
+stands one process in for every rank of a production mesh (PyTorch's
+``fake`` process group, ``repro``'s 512 placeholder host devices):
+``launch/dryrun.py`` runs each step there on meta DTensors, and
+``layers.constrain`` redistributes activations to their specs.
 
 **The multi-switch half** (``switch_mesh``, ``vecsim_mesh``,
 ``olaf_combine_sharded``, ``olaf_step_sharded``):
@@ -37,6 +41,7 @@ there, ROADMAP hazard H10).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -96,10 +101,13 @@ _ATTN_PAT = re.compile(r"(attn)/w[qkvo]$")
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
-    """{axis name: size} of a mapping, or of a mesh (``axis_names`` and
-    ``devices.shape``: this module's :class:`Mesh` or ``repro``'s)."""
+    """{axis name: size} of a mapping, of a mesh (``axis_names`` and
+    ``devices.shape``: this module's :class:`Mesh` or ``repro``'s), or of a
+    torch ``DeviceMesh`` (``mesh_dim_names`` and ``shape``)."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
@@ -262,6 +270,86 @@ def out_pspecs_for(kind: str, mesh, cfg, in_specs, data_specs):
     """Out specs are assembled per step type by the dry run, as in
     ``repro``, which leaves this unimplemented too."""
     raise NotImplementedError
+
+
+def to_placements(spec: Optional[Spec], axis_names: Sequence[str],
+                  sizes: Optional[Sequence[int]] = None) -> tuple:
+    """A per-dim spec as DTensor placements over a mesh whose axes are
+    ``axis_names``: ``Shard(d)`` on each axis that dim ``d``'s entry names
+    (a tuple such as ``("pod", "data")`` shards one dim over both, the
+    first axis major, as a ``PartitionSpec`` does), ``Replicate()`` on the
+    rest. ``None`` (no spec) replicates. Given the axes' ``sizes``, an axis
+    of one rank replicates (a shard over one rank is the whole tensor, and
+    some torch versions refuse views of it)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(axis_names)
+    seen = set()
+    for d, entry in enumerate(spec or ()):
+        if entry is None:
+            continue
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            if a in seen:
+                raise ValueError(f"axis {a!r} named twice in {spec}")
+            seen.add(a)
+            i = axis_names.index(a)
+            if sizes is None or sizes[i] > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def to_named(tree, spec_tree, device_mesh):
+    """``repro``'s ``to_named``, applied: each leaf of ``tree`` (a dict,
+    tuple or ``NamedTuple`` of tensors, meta or not) distributed over the
+    torch ``device_mesh`` by its spec in ``spec_tree`` (a tree of the same
+    structure). Returns the same tree of DTensors; a ``None`` leaf stays
+    ``None``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    names = tuple(device_mesh.mesh_dim_names)
+    sizes = tuple(device_mesh.shape)
+
+    def place(x, spec):
+        if x is None:
+            return None
+        return distribute_tensor(x, device_mesh,
+                                 to_placements(spec, names, sizes))
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v, sv) for v, sv in zip(t, s)))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, sv) for v, sv in zip(t, s))
+        return place(t, s)
+
+    return walk(tree, spec_tree)
+
+
+@contextlib.contextmanager
+def fake_device_mesh(sizes: Mapping[str, int]):
+    """A torch ``DeviceMesh`` of ``sizes`` (``{axis name: size}`` in axis
+    order) over PyTorch's ``fake`` process group of ``prod(sizes)`` ranks,
+    this process rank 0: one process stands in for every rank. Collectives
+    on it move nothing and return no real values (ROADMAP hazard H30), so
+    it serves shapes, placements, the collectives' plan and memory, never
+    a comparison of values. The group is destroyed on exit, after an
+    error too. Refuses to open while a process group is initialized."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_device_mesh: a process group is already "
+                           "initialized in this process")
+    names, shape = tuple(sizes), tuple(int(n) for n in sizes.values())
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

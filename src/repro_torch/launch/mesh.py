@@ -41,4 +41,10 @@ HW = dict(
     hbm_bw=3.35e12,  # GPU memory bandwidth, 3.35 TB/s
     nvlink_bw=900e9,  # NVLink, 900 GB/s aggregate per GPU
     hbm_bytes=80 * 2**30,  # 80 GB of HBM3, counted as 80 GiB
+    # The network that bounds a 16 × 16 mesh: NVLink joins the 8 GPUs of
+    # one node, so 256 GPUs are 32 nodes, and both axes (16 ranks each)
+    # cross nodes. Each GPU of a DGX H100 has its own ConnectX-7 port at
+    # 400 Gb/s InfiniBand (NVIDIA DGX H100 data sheet: 8 × 400 Gb/s), 50 GB/s
+    # per direction per GPU.
+    net_bw=50e9,
 )

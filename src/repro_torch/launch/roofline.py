@@ -18,13 +18,24 @@ to ``repro``'s. Terms, per device of the 256-device mesh:
 
     compute    = counted FLOPs / 256 / 989e12    (H100 SXM, bf16 dense)
     memory     = (argument + output bytes per device, ``launch.dryrun``)
-                 / 3.35e12: a lower bound (activations left out)
-    collective = None: PyTorch emits no HLO to read collectives from
+                 / 3.35e12: a lower bound (the activations' traffic left
+                 out; XLA's ``bytes accessed`` has no counterpart yet)
+    collective = collective bytes per device / 50e9: the result bytes of
+                 every collective rank 0 issues in the dry run's sharded
+                 pass (``launch.dryrun.sharded_probes``, the same 1- and
+                 2-period probes), over one GPU's InfiniBand port
+                 (``launch.mesh.HW["net_bw"]``: both axes of the 16 × 16
+                 mesh cross nodes). The plan is DTensor's, not XLA's.
     MODEL_FLOPS = 6·N·D (train) or 2·N·D, with N the active parameters.
+
+``--no-probes`` takes both counts from full-depth runs instead (FLOPs
+counted at the whole depth, the sharded pass at the whole depth), as
+``repro``'s reads them from the full-graph dry run. ``full_graph_collectives``
+holds the per-kind bytes the terms came from.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.roofline --all
-  PYTHONPATH=src python -m repro_torch.launch.roofline --arch gemma-2b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.roofline --arch gemma-2b --shape train_4k [--no-probes]
 Records: ``<out>/<arch>__<shape>.json`` and ``roofline_table.md``, ``--out``
 defaulting to ``build/roofline_torch/``.
 """
@@ -48,7 +59,6 @@ from repro_torch.models.module import count_params, tree_leaves, tree_unflatten
 from repro_torch.models.transformer import period_len, split_plan
 
 OUT_DIR = Path("build") / "roofline_torch"
-COLLECTIVE_REASON = "no HLO to parse: PyTorch emits none"
 ARCHS = dryrun.ARCHS
 
 
@@ -131,7 +141,8 @@ def model_flops(cfg: ArchConfig, shape: ShapeCfg) -> Tuple[float, float]:
 # ---------------------------------------------------------------------------
 # The roofline record
 # ---------------------------------------------------------------------------
-def analyze_cell(arch: str, shape_name: str) -> dict:
+def analyze_cell(arch: str, shape_name: str, *, use_probes: bool = True
+                 ) -> dict:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "status": "skipped"}
@@ -140,21 +151,34 @@ def analyze_cell(arch: str, shape_name: str) -> dict:
         return rec
     mesh = make_production_mesh(multi_pod=False)
     n_chips = n_devices(mesh)
-    costs = probe_costs(arch, shape_name)
+    if use_probes:
+        costs = probe_costs(arch, shape_name)
+        sharded = dryrun.sharded_probes(cfg, shape, mesh)
+    else:
+        ctx = dryrun.with_mesh_context(cfg, mesh)
+        costs = dict(flops=count_flops(
+            _probe_cfg(ctx, ctx.n_layers, shape), shape,
+            dryrun.vocab_pad_for(ctx, mesh)))
+        sharded = dryrun.sharded_fit(cfg, shape, mesh)
+    coll = sharded["collectives"]
     fit = dryrun.memory_fit(cfg, shape, mesh)
     flops_dev = costs["flops"] / n_chips
     terms = {"compute_s": flops_dev / HW["peak_flops_bf16"],
              "memory_s": fit["per_device_lower_bound"] / HW["hbm_bw"],
-             "collective_s": None}
-    bound = max(t for t in terms.values() if t is not None)
-    dominant = next(k for k, t in terms.items() if t == bound)
+             "collective_s": coll["total_bytes"] / HW["net_bw"]}
+    bound = max(terms.values())
+    dominant = max(terms, key=terms.get)
     mf, n_active = model_flops(cfg, shape)
     rec.update(
         status="ok",
         per_device=dict(costs, flops=flops_dev,
-                        bytes_lower_bound=fit["per_device_lower_bound"]),
+                        bytes_lower_bound=fit["per_device_lower_bound"],
+                        coll=coll["total_bytes"],
+                        temp_bytes=sharded["temp_bytes"]),
         terms_s=terms, dominant=dominant,
-        collective_reason=COLLECTIVE_REASON,
+        full_graph_collectives=coll["per_kind"],
+        collective_plan="DTensor's, not XLA's",
+        probes=sharded.get("probes"),
         model_flops_total=mf, n_active_params=n_active,
         model_flops_per_chip=mf / n_chips,
         useful_flops_ratio=mf / max(costs["flops"], 1.0),
@@ -164,11 +188,15 @@ def analyze_cell(arch: str, shape_name: str) -> dict:
 
 
 def improvement_note(rec: dict) -> str:
-    if rec["dominant"] == "compute_s":
+    d = rec["dominant"]
+    if d == "compute_s":
         return ("compute-bound: reduce non-useful FLOPs (attention block "
                 "skipping, fused kernels) or grow per-chip batch")
-    return ("HBM-bound: fuse elementwise chains, shrink remat traffic, "
-            "quantize caches/weights")
+    if d == "memory_s":
+        return ("HBM-bound: fuse elementwise chains, shrink remat traffic, "
+                "quantize caches/weights")
+    return ("collective-bound: reshard to cut all-gathers (wider FSDP "
+            "prefetch overlap, SP off for short seqs), compress grads")
 
 
 def write_markdown(records, path: Path):
@@ -200,6 +228,9 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=str(OUT_DIR),
                     help="directory of the JSON records and the table")
+    ap.add_argument("--no-probes", action="store_true",
+                    help="count at full depth instead of from the 1- and "
+                         "2-period probes")
     args = ap.parse_args(argv)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -209,7 +240,7 @@ def main(argv=None) -> int:
     for a in archs:
         for s in shapes:
             try:
-                rec = analyze_cell(a, s)
+                rec = analyze_cell(a, s, use_probes=not args.no_probes)
             except Exception as e:  # noqa: BLE001 — the cell's reason
                 rec = {"arch": a, "shape": s, "status": "error",
                        "reason": f"{type(e).__name__}: {e}"}
@@ -219,7 +250,8 @@ def main(argv=None) -> int:
             if rec["status"] == "ok":
                 t = rec["terms_s"]
                 print(f"[{a} {s}] comp {t['compute_s']:.2e}s mem "
-                      f"{t['memory_s']:.2e}s coll n/a -> {rec['dominant']} "
+                      f"{t['memory_s']:.2e}s coll {t['collective_s']:.2e}s "
+                      f"-> {rec['dominant']} "
                       f"useful={rec['useful_flops_ratio']:.2f} "
                       f"roofline={rec['roofline_fraction']:.1%}")
             else:

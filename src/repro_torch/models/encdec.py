@@ -87,34 +87,43 @@ def init_encdec(gen, cfg: ArchConfig, vocab_pad_multiple: int = 1, *,
 
 
 def _self_attn(p, x, cfg: ArchConfig, causal: bool):
-    q, k, v = L.qkv(p, x)
+    q, k, v = L.qkv(p, x, cfg)
     ctx = L.attention_any(q, L.expand_kv(k, cfg), L.expand_kv(v, cfg),
                           causal=causal, impl=cfg.attn_impl,
                           chunk=cfg.attn_chunk)
-    return L.out_proj(p, ctx), k, v
+    return L.out_proj(p, ctx, cfg), k, v
 
 
-def _cross_kv(p, enc_out, dtype):
+def _cross_kv(p, enc_out, dtype, cfg=None):
     """The encoder states' cross K/V (B, F, KV, Dh), projected in the
     states' dtype and held in ``dtype``."""
-    return tuple(torch.einsum("bsd,dke->bske", enc_out,
-                              p[w].to(enc_out.dtype)).to(dtype)
-                 for w in ("wk", "wv"))
+    return tuple(L.head_proj(enc_out, p[w].to(enc_out.dtype), cfg,
+                             None).to(dtype) for w in ("wk", "wv"))
 
 
 def _cross_attn(p, x, k, v, cfg: ArchConfig):
     """Unmasked attention of x's queries over the encoder's unexpanded k/v
     (B, F, KV, Dh), plain PyTorch."""
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    s = torch.einsum("bqhd,bshd->bhqs", q, L.expand_kv(k, cfg)).to(torch.float32)
+    q = L.head_proj(L.constrain(x, cfg, ("batch", None, None)), p["wq"],
+                    cfg, L.head_label(cfg))
+    q = L.constrain(q, cfg, ("batch", None, L.head_label(cfg), None))
+    ke, ve = L.expand_kv(k, cfg), L.expand_kv(v, cfg)
+    pl = tuple(q.placements) if L.is_dtensor(q) else None
+    ctx = L.shard_local(_cross_core, pl, (pl, pl, pl), q, ke, ve)
+    return L.out_proj(p, ctx, cfg)
+
+
+def _cross_core(q, ke, ve):
+    """Unmasked attention of q (B, S, H, Dh) over ke, ve (B, F, H, Dh);
+    each (batch, head) on its own."""
+    s = torch.einsum("bqhd,bshd->bhqs", q, ke).to(torch.float32)
     pa = torch.softmax(s / math.sqrt(q.shape[-1]), dim=-1).to(q.dtype)
-    return L.out_proj(p, torch.einsum("bhqs,bshd->bqhd", pa,
-                                      L.expand_kv(v, cfg)))
+    return torch.einsum("bhqs,bshd->bqhd", pa, ve)
 
 
 def _mlp(p, x, cfg: ArchConfig):
     return x + L.apply_mlp(p["mlp"], L.apply_norm(cfg.norm, p["ln2"], x),
-                           cfg.act)
+                           cfg.act, cfg)
 
 
 def encode(params, frames, cfg: ArchConfig) -> torch.Tensor:
@@ -137,6 +146,7 @@ def encode(params, frames, cfg: ArchConfig) -> torch.Tensor:
 
 def _embed_dec(params, tokens, positions, cfg: ArchConfig):
     x = L.embed(params["embedding"], tokens)
+    x = L.constrain(x, cfg, L.residual_dims(cfg, x.shape[1]))
     return x + sinusoidal(positions, cfg.d_model, x.dtype)
 
 
@@ -146,7 +156,7 @@ def _dec_layer(p, x, enc_out, cfg: ArchConfig):
     a, k, v = _self_attn(p["self_attn"], L.apply_norm(cfg.norm, p["ln1"], x),
                          cfg, causal=True)
     x = x + a
-    kx, vx = _cross_kv(p["cross_attn"], enc_out, x.dtype)
+    kx, vx = _cross_kv(p["cross_attn"], enc_out, x.dtype, cfg)
     x = x + _cross_attn(p["cross_attn"], L.apply_norm(cfg.norm, p["ln_x"], x),
                         kx, vx, cfg)
     return _mlp(p, x, cfg), {"self_k": k, "self_v": v, "cross_k": kx,
@@ -165,12 +175,12 @@ def _decoder(params, frames, tokens, cfg: ArchConfig):
 def encdec_forward(params, frames, tokens, cfg: ArchConfig) -> torch.Tensor:
     """Teacher-forcing forward -> logits (B, S, vocab)."""
     x, _ = _decoder(params, frames, tokens, cfg)
-    return L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
+    return L.unembed(params["embedding"], x, true_vocab=cfg.vocab, cfg=cfg)
 
 
 def encdec_loss(params, batch, cfg: ArchConfig) -> torch.Tensor:
     logits = encdec_forward(params, batch["frames"], batch["tokens"], cfg)
-    return L.cross_entropy(logits, batch["labels"])
+    return L.cross_entropy(logits, batch["labels"], cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +201,11 @@ def encdec_prefill(params, frames, tokens, cfg: ArchConfig):
     """Encode, run the decoder over the prefix -> (last-position logits (B,
     1, V), decode caches)."""
     x, caches = _decoder(params, frames, tokens, cfg)
-    logits = L.unembed(params["embedding"], x[:, -1:, :], true_vocab=cfg.vocab)
+    logits = L.unembed(params["embedding"], x[:, -1:, :], true_vocab=cfg.vocab,
+                       cfg=cfg)
+    # the caches placed as the prefill's outputs are (plain: as they are)
+    caches = {k: L.constrain(c, cfg, (None,) + L.cache_dims(cfg, c.shape[3]))
+              for k, c in caches.items()}
     return logits, caches
 
 
@@ -204,16 +218,22 @@ def encdec_decode_step(params, caches, token, pos, cfg: ArchConfig):
 
     def body(h, inp):
         p, c = inp
-        q, k, v = L.qkv(p["self_attn"], L.apply_norm(cfg.norm, p["ln1"], h))
+        q, k, v = L.qkv(p["self_attn"], L.apply_norm(cfg.norm, p["ln1"], h),
+                        cfg)
+        q = L.constrain(q, cfg, ("batch", None, None, None))
         kc, vc = c["self_k"], c["self_v"]
-        kc.index_put_((rows, slot), k[:, 0])
-        vc.index_put_((rows, slot), v[:, 0])
+        if L.is_dtensor(kc):
+            TF.write_token(kc, slot, k[:, 0])
+            TF.write_token(vc, slot, v[:, 0])
+        else:
+            kc.index_put_((rows, slot), k[:, 0])
+            vc.index_put_((rows, slot), v[:, 0])
         if cfg.attn_impl == "pallas":
             ctx = TF._decode_kernel_route(q, kc, vc, pos, cfg)
         else:
-            ctx = L.decode_attention(q, L.expand_kv(kc, cfg),
-                                     L.expand_kv(vc, cfg), pos)
-        h = h + L.out_proj(p["self_attn"], ctx)
+            ctx = L.decode_attention(q, L.expand_kv(kc, cfg, decode=True),
+                                     L.expand_kv(vc, cfg, decode=True), pos)
+        h = h + L.out_proj(p["self_attn"], ctx, cfg)
         h = h + _cross_attn(p["cross_attn"],
                             L.apply_norm(cfg.norm, p["ln_x"], h),
                             c["cross_k"], c["cross_v"], cfg)
@@ -221,5 +241,5 @@ def encdec_decode_step(params, caches, token, pos, cfg: ArchConfig):
 
     x, _ = run_periods(body, x, (params["dec_layers"], caches), cfg=cfg)
     x = L.apply_norm(cfg.norm, params["dec_final"], x)
-    logits = L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
+    logits = L.unembed(params["embedding"], x, true_vocab=cfg.vocab, cfg=cfg)
     return logits[:, 0, :], caches

@@ -140,14 +140,56 @@ def remat_wrap(body: Callable, cfg) -> Callable:
     return lambda c, p: checkpoint(body, c, p, use_reentrant=False)
 
 
+FSDP_AXES = ("pod", "data")
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (checked without importing
+    ``torch.distributed`` for a plain tensor)."""
+    if type(x) is torch.Tensor or not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def fsdp_gather(x):
+    """A DTensor weight gathered over the batch (FSDP) axes, its other
+    placements kept, as FSDP gathers a layer's weights before it runs (the
+    backward reduce-scatters the gradient back to the shards); anything
+    else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    names = x.device_mesh.mesh_dim_names
+    pl = tuple(Replicate() if n in FSDP_AXES else p
+               for n, p in zip(names, x.placements))
+    return x if pl == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
 def run_periods(body: Callable, carry, stacked_params: Params, *, cfg=None):
     """Loop ``body(carry, period_params) -> (carry, out)`` over the leading
     axis of ``stacked_params`` (a dict, or a tuple of dicts sliced
     together), each period under ``cfg``'s remat policy
     (:func:`remat_wrap`). Returns ``(carry, outs)`` with ``outs`` stacked
-    on a new leading axis, or ``None`` when the body returns ``None``."""
+    on a new leading axis, or ``None`` when the body returns ``None``. On
+    DTensors each period's weights (the first dict of a tuple: the others
+    are caches, written in place) are gathered over the FSDP axes inside
+    the period (:func:`fsdp_gather`; under remat the gather is recomputed
+    in the backward, not saved), unless the carry is one token a row (a
+    decode step reads its weights where they lie and moves activations,
+    as ``repro``'s decode constraints arrange)."""
     leaves = list(tree_paths(stacked_params).values())
     n = leaves[0].shape[0] if leaves else 0
+    if leaves and is_dtensor(leaves[0]):
+        inner = body
+
+        def body(c, p):  # noqa: F811 — the gathering body
+            if c.dim() == 3 and c.shape[1] == 1:
+                return inner(c, p)
+            if isinstance(p, tuple):
+                return inner(c, (tree_map(fsdp_gather, p[0]),) + p[1:])
+            return inner(c, tree_map(fsdp_gather, p))
     fn = remat_wrap(body, cfg)
     ys = []
     for i in range(n):

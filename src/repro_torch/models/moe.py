@@ -27,8 +27,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _gelu, apply_mlp, init_mlp
-from repro_torch.models.module import Draws, dense_init, normal
+from repro_torch.models.layers import (_gelu, apply_mlp, constrain,
+                                      init_mlp, is_dtensor, shard_local)
+from repro_torch.models.module import Draws, dense_init, fsdp_gather, normal
 
 
 def _stacked(gen: Draws, n: int, in_dim: int, out_dim: int, dtype):
@@ -82,29 +83,93 @@ def expert_slots(topi: torch.Tensor, n_experts: int, cap: int):
     return slot, slot < cap
 
 
-def apply_moe(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
-    E, K, act = cfg.n_experts, cfg.top_k, cfg.act
+def _dispatch(x, router, E: int, K: int, cap: int):
+    """Route each token of x (B, S, d) and scatter it into its experts'
+    slots: ``(xin (E, B, cap, d), topv, topi, slot, kept, b_idx)``, the
+    last five (B, S, K). Each batch row is routed and packed on its own."""
     B, S, d = x.shape
-    cap = moe_capacity(S, E, K, cfg.capacity_factor)
-    _, topv, topi = route(x, p["router"], K)
+    _, topv, topi = route(x, router, K)
     slot, kept = expert_slots(topi, E, cap)
     c_idx = torch.where(kept, slot, cap)  # dropped pairs: the scratch slot
     b_idx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, K)
     src = x[:, :, None, :].expand(B, S, K, d)
     xin = x.new_zeros((E, B, cap + 1, d)).index_put(
         (topi, b_idx, c_idx), src, accumulate=True)[:, :, :cap]  # (E,B,C,d)
-    g = torch.einsum("ebcd,edf->ebcf", xin, p["wg"])
-    u = torch.einsum("ebcd,edf->ebcf", xin, p["wu"])
+    return xin, topv, topi, slot, kept, b_idx
+
+
+def _combine(h, topv, topi, slot, kept, b_idx, E: int, e_off: int,
+             dtype):
+    """Each kept pair's expert row of h (E_local, B, cap, d), the experts
+    ``e_off ..`` of the whole E, weighted by its gate in ``dtype``, summed
+    over k in float32 (one rounding, as the einsum's); on an expert shard
+    (E_local < E) a pair whose expert lies outside h adds zero (the rank
+    holding it adds its row)."""
+    El, cap = h.shape[0], h.shape[2]
+    e, mine = topi, kept
+    if El != E:
+        e = topi - e_off
+        mine = kept & (e >= 0) & (e < El)
+        e = e.clamp(0, El - 1)
+    rows = h[e, b_idx, torch.clamp(slot, max=cap - 1)]
+    w = (topv.to(dtype) * mine.to(dtype)).to(torch.float32)
+    return (w[..., None] * rows.to(torch.float32)).sum(2).to(dtype)
+
+
+def _experts(x, router, wg, wu, wd, E: int, K: int, cap: int, act: str,
+             e_off: int):
+    """Route x (B, S, d), run the experts ``e_off ..`` that ``wg``, ``wu``,
+    ``wd`` hold (all E, or one model shard's; their ff dim whole or a
+    shard's) and combine: (B, S, d), a partial sum where the experts or
+    their ff dim are a shard's."""
+    xin, topv, topi, slot, kept, b_idx = _dispatch(x, router, E, K, cap)
+    if wg.shape[0] != E:
+        xin = xin[e_off:e_off + wg.shape[0]]
+    g = torch.einsum("ebcd,edf->ebcf", xin, wg)
+    u = torch.einsum("ebcd,edf->ebcf", xin, wu)
     g = F.silu(g) if act == "silu" else _gelu(g)
-    h = torch.einsum("ebcf,efd->ebcd", g * u, p["wd"])
-    # combine: each kept pair's expert row, weighted by its gate in x's
-    # dtype, summed over k in float32 (one rounding, as the einsum's)
-    rows = h[topi, b_idx, torch.clamp(slot, max=cap - 1)]  # (B,S,K,d)
-    w = (topv.to(x.dtype) * kept.to(x.dtype)).to(torch.float32)
-    out = (w[..., None] * rows.to(torch.float32)).sum(2).to(x.dtype)
+    h = torch.einsum("ebcf,efd->ebcd", g * u, wd)
+    return _combine(h, topv, topi, slot, kept, b_idx, E, e_off, x.dtype)
+
+
+def apply_moe(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d). On DTensors the whole layer runs on each
+    rank's shards (``layers.shard_local``: no DTensor rule covers an
+    accumulating ``index_put``, hazard H24): its batch rows, every token's
+    routing, and the experts as the weights are placed over the model axis
+    (E over it where it divides E, else the ff dim, ``repro``'s rules), so
+    each rank's output is a partial sum over that axis, which the output's
+    constraint reduces."""
+    E, K, act = cfg.n_experts, cfg.top_k, cfg.act
+    B, S, d = x.shape
+    cap = moe_capacity(S, E, K, cfg.capacity_factor)
+    xs = constrain(x, cfg, ("batch", None, None))  # each row's whole sequence
+    # the local products need whole d_model rows: gathered over the FSDP
+    # axes (a no-op where the period already gathered them; a decode step
+    # gathers them here)
+    ws = tuple(fsdp_gather(p[k]) for k in ("wg", "wu", "wd"))
+    out_pl = in_pl = None
+    e_off = 0
+    if is_dtensor(xs):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        rows = tuple(xs.placements)
+        wpl = [tuple(w.placements) for w in ws]
+        out_pl = tuple(
+            Shard(0) if r == Shard(0) else
+            Partial() if isinstance(wpl[0][i], Shard) else Replicate()
+            for i, r in enumerate(rows))
+        in_pl = (rows, (Replicate(),) * len(rows)) + tuple(wpl)
+        e_off = compute_local_shape_and_global_offset(
+            ws[0].shape, ws[0].device_mesh, wpl[0])[1][0]
+    out = shard_local(
+        lambda x_, r_, g_, u_, d_: _experts(x_, r_, g_, u_, d_, E, K, cap,
+                                            act, e_off),
+        out_pl, in_pl, xs, p["router"], *ws)
+    out = constrain(out, cfg, ("batch", "sp", None))
     if "dense" in p:  # arctic's parallel dense residual FFN
-        out = out + apply_mlp(p["dense"], x, act)
+        out = out + apply_mlp(p["dense"], x, act, cfg)
     return out
 
 

@@ -23,7 +23,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.layers import _gelu, causal_conv, softplus
+from repro_torch.models.layers import (_gelu, causal_conv, constrain,
+                                      residual_dims, softplus)
 from repro_torch.models.module import Draws, dense_init, normal
 
 _C = 8.0
@@ -77,11 +78,16 @@ def rglru_prefill(p, x, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B,S,d) -> (B,S,d), and the decode cache: the final state and the
     last K-1 conv inputs (``repro``'s ``transformer._rglru_prefill``, which
     runs the same scan twice; once here)."""
+    x = constrain(x, cfg, ("batch", None, None))  # the whole sequence
     gate = _gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate_branch"]))
+    gate = constrain(gate, cfg, ("batch", None, "tp"))
     xw_in = torch.einsum("bsd,dw->bsw", x, p["w_rec_branch"])
-    a, gx = _gates(p, causal_conv(xw_in, p["conv_w"], p["conv_b"]))
+    xw = constrain(causal_conv(xw_in, p["conv_w"], p["conv_b"]), cfg,
+                   ("batch", None, "tp"))
+    a, gx = _gates(p, xw)
     h = linear_scan(a, gx)
     y = torch.einsum("bsw,wd->bsd", h.to(x.dtype) * gate, p["wo"])
+    y = constrain(y, cfg, residual_dims(cfg, y.shape[1]))
     return y, {"h": h[:, -1], "conv": xw_in[:, -(cfg.conv_kernel - 1):, :]}
 
 
@@ -106,4 +112,5 @@ def apply_rglru_decode(p, x, cache, cfg):
     a, gx = _gates(p, xw)
     h = a[:, 0] * cache["h"] + gx[:, 0]
     out = torch.einsum("bsw,wd->bsd", h[:, None, :].to(x.dtype) * gate, p["wo"])
+    out = constrain(out, cfg, residual_dims(cfg, out.shape[1]))
     return out, {"h": h, "conv": window[:, 1:, :]}

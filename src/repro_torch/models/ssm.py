@@ -20,7 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import causal_conv, softplus
+from repro_torch.models.layers import (causal_conv, constrain, is_dtensor,
+                                      model_axis, residual_dims, shard_local,
+                                      softplus)
 from repro_torch.models.module import Draws, dense_init, normal
 
 
@@ -72,8 +74,13 @@ def _gated_norm(y, z, scale, eps: float = 1e-6):
 
 def _project(p, x, cfg):
     dm = ssm_dims(cfg)
-    z = torch.einsum("bsd,di->bsi", x, p["wz"])
-    xi = torch.einsum("bsd,di->bsi", x, p["wx"])
+    # the whole sequence (a sequence-parallel gather; some torch versions
+    # refuse to flatten a sharded sequence into the product's rows)
+    x = constrain(x, cfg, ("batch", None, None))
+    z = constrain(torch.einsum("bsd,di->bsi", x, p["wz"]), cfg,
+                  ("batch", None, "tp"))
+    xi = constrain(torch.einsum("bsd,di->bsi", x, p["wx"]), cfg,
+                   ("batch", None, "tp"))
     Bp = torch.einsum("bsd,dn->bsn", x, p["wB"])
     Cp = torch.einsum("bsd,dn->bsn", x, p["wC"])
     dt_raw = torch.einsum("bsd,dh->bsh", x, p["wdt"]).to(torch.float32)
@@ -108,10 +115,41 @@ def _ssd(p, x, cfg):
         xi, Bp, Cp, dt = (F.pad(t, pad) for t in (xi, Bp, Cp, dt))
     NC = S_pad // Q
     A = -torch.exp(p["A_log"])  # (H,) negative
-    xh = xi.reshape(B, NC, Q, H, P).to(torch.float32)
+    # d_inner splits into (H, P) shard-aligned only over whole heads: else
+    # gathered first (some torch versions refuse a strided split)
+    xi = constrain(xi, cfg, ("batch", None, _head_split(cfg, H)))
+    xh = constrain(xi.reshape(B, NC, Q, H, P), cfg,
+                   ("batch", None, None, None, "tp")).to(torch.float32)
     Bh = Bp.reshape(B, NC, Q, N).to(torch.float32)  # G = 1
     Ch = Cp.reshape(B, NC, Q, N).to(torch.float32)
     dth = dt.reshape(B, NC, Q, H)
+    Y, h = shard_local(_ssd_core, *_core_placements(xh), xh, Bh, Ch, dth, A,
+                       p["D"])
+    # heads whole-channelled before (H, P) flattens into d_inner: the heads
+    # over the model axis where they divide it, else replicated
+    Y = constrain(Y, cfg, ("batch", None, None, "tp", None))
+    # and its gradient placed so before the reshape's backward splits it
+    y = constrain(Y.reshape(B, S_pad, dm["d_inner"]), cfg,
+                  ("batch", None, _head_split(cfg, H)))[:, :S].to(x.dtype)
+    y = _gated_norm(y, z, p["norm_scale"])
+    y_out = torch.einsum("bsi,id->bsd", y, p["wo"])
+    return (constrain(y_out, cfg, residual_dims(cfg, y_out.shape[1])), h,
+            conv_in[:, -(cfg.conv_kernel - 1):, :])
+
+
+def _head_split(cfg, n_heads: int):
+    """The label of d_inner before it splits into (heads, headdim): "tp"
+    where the model axis divides the heads, else whole."""
+    return "tp" if n_heads % model_axis(cfg) == 0 else None
+
+
+def _ssd_core(xh, Bh, Ch, dth, A, D):
+    """The chunked SSD over float32 chunks: xh (B, NC, Q, H, P), Bh and Ch
+    (B, NC, Q, N), dth (B, NC, Q, H), A and D (H,) -> (Y (B, NC, Q, H, P),
+    the state after the last chunk (B, H, P, N)). Each batch row, head and
+    head channel on its own, so it runs on a DTensor's local shards."""
+    B, NC, Q, H, P = xh.shape
+    N = Bh.shape[-1]
     cum = torch.cumsum(dth * A, dim=2)  # inclusive log-decay
 
     # ---- intra-chunk (quadratic in Q) ----
@@ -119,7 +157,7 @@ def _ssd(p, x, cfg):
     # entries are positive and would overflow, poisoning gradients via 0·inf
     Lmat = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,NC,Qi,Qj,H)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                   device=x.device))[None, None, :, :, None]
+                                   device=xh.device))[None, None, :, :, None]
     Ldec = torch.exp(torch.where(causal, Lmat, torch.full_like(Lmat, -1e30)))
     Smat = torch.einsum("bcin,bcjn->bcij", Ch, Bh)  # (B,NC,Q,Q)
     xdt = xh * dth[..., None]  # (B,NC,Q,H,P)
@@ -130,7 +168,7 @@ def _ssd(p, x, cfg):
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,NC,Q,H)
     states = torch.einsum("bcjh,bcjn,bcjhp->bchpn", decay_to_end * dth, Bh, xh)
     chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,NC,H)
-    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
     h_prev = []
     for c in range(NC):  # the state *entering* each chunk
         h_prev.append(h)
@@ -139,11 +177,27 @@ def _ssd(p, x, cfg):
 
     Y_off = torch.einsum("bcin,bchpn->bcihp", Ch, h_prev) \
         * torch.exp(cum)[..., None]
-    Y = Y + Y_off + p["D"][None, None, None, :, None] * xh
-    y = Y.reshape(B, S_pad, dm["d_inner"])[:, :S].to(x.dtype)
-    y = _gated_norm(y, z, p["norm_scale"])
-    return (torch.einsum("bsi,id->bsd", y, p["wo"]), h,
-            conv_in[:, -(cfg.conv_kernel - 1):, :])
+    Y = Y + Y_off + D[None, None, None, :, None] * xh
+    return Y, h
+
+
+def _core_placements(xh):
+    """``(out, in)`` placements of :func:`_ssd_core` from those of ``xh``
+    (batch, head or head-channel shards); ``(None, None)`` for a plain
+    tensor."""
+    if not is_dtensor(xh):
+        return None, None
+    from torch.distributed.tensor import Replicate, Shard
+    to = {"y": {0: 0, 3: 3, 4: 4}, "h": {0: 0, 3: 1, 4: 2},
+          "bc": {0: 0}, "dt": {0: 0, 3: 3}, "hd": {3: 0}}
+
+    def pl(kind):
+        return tuple(Shard(to[kind][q.dim]) if isinstance(q, Shard)
+                     and q.dim in to[kind] else Replicate()
+                     for q in xh.placements)
+
+    return ((pl("y"), pl("h")),
+            (pl("y"), pl("bc"), pl("bc"), pl("dt"), pl("hd"), pl("hd")))
 
 
 def apply_ssm_train(p, x, cfg) -> torch.Tensor:
@@ -184,16 +238,48 @@ def apply_ssm_decode(p, x, cache, cfg):
     xi, Bp, Cp = _split(F.silu(conv_out)[:, None, :], dm)
     A = -torch.exp(p["A_log"])
     dt1 = dt[:, 0]  # (B,H)
-    xh = xi.reshape(B, H, P).to(torch.float32)
+    # the headdim shard pinned through the reshape, as ``repro``'s
+    xi = constrain(xi, cfg, ("batch", None, _head_split(cfg, H)))
+    xh = constrain(xi.reshape(B, H, P), cfg, ("batch", None, "tp")
+                   ).to(torch.float32)
     Bv, Cv = Bp[:, 0].to(torch.float32), Cp[:, 0].to(torch.float32)
-    decay = torch.exp(dt1 * A)
-    state = cache["state"] * decay[:, :, None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dt1, xh, Bv)
-    y = torch.einsum("bn,bhpn->bhp", Cv, state) + p["D"][None, :, None] * xh
+    y, state = shard_local(_decode_core, *_decode_placements(xh), xh, Bv, Cv,
+                           dt1, A, p["D"], cache["state"])
+    y = constrain(y, cfg, ("batch", "tp", None))  # as Y in :func:`_ssd`
     y = _gated_norm(y.reshape(B, 1, dm["d_inner"]).to(x.dtype), z,
                     p["norm_scale"])
     out = torch.einsum("bsi,id->bsd", y, p["wo"])
+    out = constrain(out, cfg, residual_dims(cfg, out.shape[1]))
     return out, {"conv": window[:, 1:, :], "state": state}
+
+
+def _decode_core(xh, Bv, Cv, dt1, A, D, state):
+    """One SSD step: xh (B, H, P), Bv and Cv (B, N), dt1 (B, H), A and D
+    (H,), state (B, H, P, N) -> (y (B, H, P), the new state). Each batch
+    row, head and head channel on its own."""
+    decay = torch.exp(dt1 * A)
+    state = state * decay[:, :, None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt1, xh, Bv)
+    y = torch.einsum("bn,bhpn->bhp", Cv, state) + D[None, :, None] * xh
+    return y, state
+
+
+def _decode_placements(xh):
+    """``(out, in)`` placements of :func:`_decode_core` from those of xh
+    (B, H, P); ``(None, None)`` for a plain tensor."""
+    if not is_dtensor(xh):
+        return None, None
+    from torch.distributed.tensor import Replicate, Shard
+    to = {"y": {0: 0, 1: 1, 2: 2}, "bn": {0: 0}, "dt": {0: 0, 1: 1},
+          "hd": {1: 0}}
+
+    def pl(kind):
+        return tuple(Shard(to[kind][q.dim]) if isinstance(q, Shard)
+                     and q.dim in to[kind] else Replicate()
+                     for q in xh.placements)
+
+    y = pl("y")
+    return ((y, y), (y, pl("bn"), pl("bn"), pl("dt"), pl("hd"), pl("hd"), y))
 
 
 # ---------------------------------------------------------------------------

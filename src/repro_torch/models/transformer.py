@@ -189,12 +189,12 @@ def _attn_block(p, x, cfg: ArchConfig, kind: str, positions):
     """Pre-norm attention over the whole sequence; returns the new residual
     and the unexpanded, rotated k/v."""
     h = L.apply_norm(cfg.norm, p["ln1"], x)
-    q, k, v = L.qkv(p["attn"], h)
+    q, k, v = L.qkv(p["attn"], h, cfg)
     q, k = _rope(cfg, q, positions), _rope(cfg, k, positions)
     ctx = L.attention_any(q, L.expand_kv(k, cfg), L.expand_kv(v, cfg),
                           causal=True, window=_attn_window(cfg, kind),
                           impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-    return x + L.out_proj(p["attn"], ctx), k, v
+    return x + L.out_proj(p["attn"], ctx, cfg), k, v
 
 
 def _ffn_block(p, x, cfg: ArchConfig):
@@ -203,7 +203,7 @@ def _ffn_block(p, x, cfg: ArchConfig):
     h = L.apply_norm(cfg.norm, p["ln2"], x)
     if "moe" in p:
         return x + MOE.apply_moe(p["moe"], h, cfg)
-    return x + L.apply_mlp(p["mlp"], h, cfg.act)
+    return x + L.apply_mlp(p["mlp"], h, cfg.act, cfg)
 
 
 def apply_layer_train(p, x, cfg: ArchConfig, kind: str, positions):
@@ -261,20 +261,60 @@ def apply_layer_prefill(p, x, cfg: ArchConfig, kind: str, positions):
         return x + y, cache
     x, k, v = _attn_block(p, x, cfg, kind, positions)
     x = _ffn_block(p, x, cfg)
+    # each layer's cache placed as the prefill's outputs are (a no-op on
+    # plain tensors)
+    dims = L.cache_dims(cfg, k.shape[2])
+    k, v = L.constrain(k, cfg, dims), L.constrain(v, cfg, dims)
     window = _attn_window(cfg, kind)
     if not window:
         return x, {"k": k, "v": v}
-    # ring buffer of exactly `window` slots (slot = pos % W) holding the
-    # last min(S, W) positions; decode masks unwritten slots
+    # ring buffer of exactly `window` slots; decode masks unwritten slots
+    return x, {"k": _ring(k, window), "v": _ring(v, window)}
+
+
+def _ring(k, window: int):
+    """The prefill's ring buffer of ``window`` slots: slot ``pos % window``
+    holds position ``pos`` of the last ``min(S, window)``, the rest zeros.
+    Built by slices alone, which a DTensor can run (it has no rule to
+    write a slice of its sequence, and some torch versions none for
+    ``roll``)."""
     S = k.shape[1]
     keep = min(S, window)
-    pos_keep = S - keep + torch.arange(keep, device=k.device)
-    slots = pos_keep % window
-    kc = k.new_zeros((k.shape[0], window) + tuple(k.shape[2:]))
-    vc = torch.zeros_like(kc)
-    kc[:, slots] = k[:, pos_keep]
-    vc[:, slots] = v[:, pos_keep]
-    return x, {"k": kc, "v": vc}
+    kc = torch.cat([k[:, S - keep:], k.new_zeros(
+        (k.shape[0], window - keep) + tuple(k.shape[2:]))], dim=1)
+    shift = (S - keep) % window  # rolled right by ``shift``
+    return torch.cat([kc[:, window - shift:], kc[:, :window - shift]], dim=1)
+
+
+def write_token(cache, slot, val) -> None:
+    """``cache[b, slot[b]] = val[b]`` for every row ``b``, in place, on a
+    DTensor cache: each rank writes its local shard (the row's position
+    offset by the shard's start where the sequence is sharded, the write
+    kept only where the slot falls in the shard), since a DTensor
+    ``index_put_`` that needs a placement change has no rule."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+
+    def shard_of(p, dims):  # the cache's dim -> val's / slot's dim
+        return (Shard(dims[p.dim]) if isinstance(p, Shard)
+                and dims.get(p.dim) is not None else Replicate())
+
+    v_dims = {0: 0, 2: 1, 3: 2}
+    v_loc = val.redistribute(mesh, tuple(shard_of(p, v_dims) for p in pl)
+                             ).to_local()
+    s_loc = slot.redistribute(mesh, tuple(shard_of(p, {0: 0}) for p in pl)
+                              ).to_local()
+    c_loc = cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    s = s_loc - offset[1]
+    mine = (s >= 0) & (s < c_loc.shape[1])
+    s = s.clamp(0, c_loc.shape[1] - 1)
+    rows = torch.arange(c_loc.shape[0], device=c_loc.device)
+    c_loc.index_put_((rows, s), torch.where(mine[:, None, None], v_loc,
+                                            c_loc[rows, s]))
 
 
 def _decode_kernel_route(q, kc, vc, pos, cfg: ArchConfig):
@@ -311,25 +351,33 @@ def apply_layer_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
         for name, t in new.items():
             cache[name].copy_(t)
         return (_ffn_block(p, x + y, cfg) if kind == "rec" else x + y), cache
-    q, k, v = L.qkv(p["attn"], h)
+    q, k, v = L.qkv(p["attn"], h, cfg)
     q, k = _rope(cfg, q, pos[:, None]), _rope(cfg, k, pos[:, None])
+    # the decode streams the (sequence-sharded) cache with the heads
+    # replicated, as ``repro``'s: q follows
+    q = L.constrain(q, cfg, ("batch", None, None, None))
     window = _attn_window(cfg, kind)
     kc, vc = cache["k"], cache["v"]
     rows = torch.arange(x.shape[0], device=x.device)
     slot = pos.to(torch.int64) % window if window else pos.to(torch.int64)
-    kc.index_put_((rows, slot), k[:, 0])
-    vc.index_put_((rows, slot), v[:, 0])
+    if L.is_dtensor(kc):
+        write_token(kc, slot, k[:, 0])
+        write_token(vc, slot, v[:, 0])
+    else:
+        kc.index_put_((rows, slot), k[:, 0])
+        vc.index_put_((rows, slot), v[:, 0])
     if window:
         j = torch.arange(kc.shape[1], device=x.device)[None, :]
         stored_pos = pos[:, None] - torch.remainder(pos[:, None] - j, window)
-        ctx = _masked_decode_attn(q, L.expand_kv(kc, cfg),
-                                  L.expand_kv(vc, cfg), stored_pos >= 0)
+        ctx = _masked_decode_attn(q, L.expand_kv(kc, cfg, decode=True),
+                                  L.expand_kv(vc, cfg, decode=True),
+                                  stored_pos >= 0)
     elif cfg.attn_impl == "pallas":
         ctx = _decode_kernel_route(q, kc, vc, pos, cfg)
     else:
-        ctx = L.decode_attention(q, L.expand_kv(kc, cfg),
-                                 L.expand_kv(vc, cfg), pos)
-    x = x + L.out_proj(p["attn"], ctx)
+        ctx = L.decode_attention(q, L.expand_kv(kc, cfg, decode=True),
+                                 L.expand_kv(vc, cfg, decode=True), pos)
+    x = x + L.out_proj(p["attn"], ctx, cfg)
     return _ffn_block(p, x, cfg), cache
 
 
@@ -337,19 +385,24 @@ def apply_layer_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
 # Model-level entry points
 # --------------------------------------------------------------------------
 def _embed(params, cfg: ArchConfig, tokens):
-    return L.embed(params["embedding"], tokens, scale_by_dim=cfg.embed_scale)
+    """Token embeddings, placed as the residual stream (a vocab-sharded
+    lookup of DTensors is a partial sum over the vocab shards until
+    then)."""
+    x = L.embed(params["embedding"], tokens, scale_by_dim=cfg.embed_scale)
+    return L.constrain(x, cfg, L.residual_dims(cfg, x.shape[1]))
 
 
 def _embed_inputs(params, cfg: ArchConfig, tokens, patches=None):
     """Token embeddings, behind the projected patch embeddings for vlm."""
     x = _embed(params, cfg, tokens)
     if cfg.family != "vlm":
-        return x
+        return L.constrain(x, cfg, L.residual_dims(cfg, x.shape[1]))
     if patches is None:
         raise ValueError(f"{cfg.name}: the vlm family needs stub patch "
                          f"embeddings (batch['patches'])")
     img = torch.einsum("bpd,de->bpe", patches.to(x.dtype), params["patch_proj"])
-    return torch.cat([img, x], dim=1)
+    x = torch.cat([img, x], dim=1)
+    return L.constrain(x, cfg, L.residual_dims(cfg, x.shape[1]))
 
 
 def _text(cfg: ArchConfig, x, tokens):
@@ -373,7 +426,7 @@ def lm_forward(params, tokens, cfg: ArchConfig, patches=None) -> torch.Tensor:
         x = apply_layer_train(params["tail"][f"layer_{i}"], x, cfg, kind,
                               positions)
     x = _text(cfg, L.apply_norm(cfg.norm, params["final_norm"], x), tokens)
-    return L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
+    return L.unembed(params["embedding"], x, true_vocab=cfg.vocab, cfg=cfg)
 
 
 def lm_loss(params, batch, cfg: ArchConfig) -> torch.Tensor:
@@ -381,7 +434,7 @@ def lm_loss(params, batch, cfg: ArchConfig) -> torch.Tensor:
     ``batch["labels"]`` (a 0-dim float32)."""
     logits = lm_forward(params, batch["tokens"], cfg,
                         patches=batch.get("patches"))
-    return L.cross_entropy(logits, batch["labels"])
+    return L.cross_entropy(logits, batch["labels"], cfg)
 
 
 def lm_prefill(params, tokens, cfg: ArchConfig, patches=None):
@@ -406,7 +459,8 @@ def lm_prefill(params, tokens, cfg: ArchConfig, patches=None):
             x, caches["tail"][f"layer_{i}"] = apply_layer_prefill(
                 params["tail"][f"layer_{i}"], x, cfg, kind, positions)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    logits = L.unembed(params["embedding"], x[:, -1:, :], true_vocab=cfg.vocab)
+    logits = L.unembed(params["embedding"], x[:, -1:, :], true_vocab=cfg.vocab,
+                       cfg=cfg)
     return logits, caches
 
 
@@ -429,5 +483,5 @@ def lm_decode_step(params, caches, token, pos, cfg: ArchConfig):
         x, _ = apply_layer_decode(params["tail"][f"layer_{i}"], x,
                                   caches["tail"][f"layer_{i}"], pos, cfg, kind)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    logits = L.unembed(params["embedding"], x, true_vocab=cfg.vocab)
+    logits = L.unembed(params["embedding"], x, true_vocab=cfg.vocab, cfg=cfg)
     return logits[:, 0, :], caches

@@ -8,7 +8,9 @@ including the skipped step: with clipping on, a non-finite global norm
 zeroes the whole gradient, and non-finite elements are zeroed. The global
 norm sums the leaves in ``jax.tree_util``'s order (sorted keys,
 :func:`repro_torch.models.module.tree_leaves`). :func:`opt_state_pspecs`
-gives the state's per-dim sharding specs, those of its params.
+gives the state's per-dim sharding specs, those of its params. The same
+functions run on DTensors (the dry run's sharded pass): each moment placed
+as its param, the global norm a sum of per-shard partial sums.
 """
 from __future__ import annotations
 

@@ -156,7 +156,7 @@ def test_dryrun_cli_writes_its_records(tmp_path):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
-                          "--out", str(tmp_path)])
+                          "--fast", "--out", str(tmp_path)])
     assert rc == 0
     assert "dry-run summary: 2 ok, 0 failed, 0 skipped of 2 cells" \
         in out.getvalue()
@@ -176,13 +176,47 @@ def test_dryrun_cli_writes_its_records(tmp_path):
     assert rec["status"] == "skipped" and "full-attention" in rec["reason"]
 
 
+def test_dryrun_cli_default_is_the_sharded_pass(tmp_path):
+    """Without ``--fast`` each record carries the sharded pass: a numeric
+    ``temp_bytes``, the total that ``fits_h100_80gb`` is judged on, and
+    the collective bytes under every ``COLLECTIVE_KINDS`` name."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
+                          "--out", str(tmp_path)])
+    assert rc == 0
+    assert "dry-run summary: 2 ok, 0 failed, 0 skipped of 2 cells" \
+        in out.getvalue()
+    for mesh in ("pod_16x16", "multipod_2x16x16"):
+        rec = json.loads((tmp_path / f"smollm-360m__decode_32k__{mesh}.json")
+                         .read_text())
+        assert rec["status"] == "ok" and rec["mesh"] == mesh
+        m = rec["memory"]
+        assert isinstance(m["temp_bytes"], int) and m["temp_bytes"] > 0
+        assert m["per_device_lower_bound"] == (m["argument_bytes"]
+                                               + m["output_bytes"])
+        assert m["per_device_total"] == (m["argument_bytes"]
+                                         + m["output_bytes"]
+                                         + m["temp_bytes"])
+        assert m["fits_h100_80gb"] == (m["per_device_total"]
+                                       <= HW["hbm_bytes"])
+        assert "temp_reason" not in m
+        coll = rec["collectives"]
+        assert set(coll["per_kind"]) == set(hlo_analysis.COLLECTIVE_KINDS)
+        assert all(isinstance(v, int) and v >= 0
+                   for v in coll["per_kind"].values())
+        assert coll["total_bytes"] == sum(coll["per_kind"].values()) > 0
+
+
 def test_roofline_cli_writes_its_records(tmp_path):
     with contextlib.redirect_stdout(io.StringIO()):
         rc = roofline.main(["--arch", "mamba2-130m", "--shape", "train_4k",
                             "--out", str(tmp_path)])
     assert rc == 0
     rec = json.loads((tmp_path / "mamba2-130m__train_4k.json").read_text())
-    assert rec["status"] == "ok" and rec["terms_s"]["collective_s"] is None
+    assert rec["status"] == "ok" and rec["terms_s"]["collective_s"] > 0
+    assert rec["terms_s"]["collective_s"] == pytest.approx(
+        sum(rec["full_graph_collectives"].values()) / HW["net_bw"])
     mf, _ = roofline.model_flops(get_config("mamba2-130m"),
                                  SHAPES["train_4k"])
     assert rec["model_flops_total"] == mf
@@ -202,3 +236,23 @@ def test_flop_count_per_period_extrapolates_exactly():
     c2 = roofline.count_flops(roofline._probe_cfg(cfg, 2, shape), shape)
     full = roofline.count_flops(roofline._probe_cfg(cfg, 5, shape), shape)
     assert c1 - (c2 - c1) + 5 * (c2 - c1) == full > 0
+
+
+def test_roofline_without_probes_equals_the_probes(monkeypatch):
+    """``analyze_cell(use_probes=False)`` (the full-depth FLOP count and
+    sharded pass) gives the probed path's FLOPs and collective bytes, on
+    a 4-layer reduced config over the single-pod mesh."""
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              n_layers=4)
+    shape = ShapeCfg("t", seq_len=32, global_batch=32, kind="train")
+    monkeypatch.setattr(roofline, "get_config", lambda arch: cfg)
+    monkeypatch.setattr(roofline, "SHAPES", {"t": shape})
+    probed = roofline.analyze_cell("smollm-360m", "t")
+    full = roofline.analyze_cell("smollm-360m", "t", use_probes=False)
+    assert probed["status"] == full["status"] == "ok"
+    assert probed["probes"] == [1, 2] and full["probes"] is None
+    assert full["per_device"]["flops"] == probed["per_device"]["flops"] > 0
+    assert full["full_graph_collectives"] == probed["full_graph_collectives"]
+    assert sum(full["full_graph_collectives"].values()) > 0
+    assert full["terms_s"]["collective_s"] == \
+        probed["terms_s"]["collective_s"] > 0
