@@ -109,7 +109,7 @@ from repro_torch.examples import lm_train as example_lm_train  # noqa: E402
 from repro_torch.examples import quickstart as example_quickstart  # noqa: E402
 from repro_torch.examples import serve_decode as example_serve_decode  # noqa: E402
 from repro_torch.optim import compress  # noqa: E402
-from repro_torch.optim.optimizers import OptConfig  # noqa: E402
+from repro_torch.optim.optimizers import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.models.module import tree_leaves  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.models import module as lm_module  # noqa: E402
@@ -2346,6 +2346,8 @@ class BatchCapture:
         return False
 
 
+DRYRUN_STEPS = 10  # timed sync steps without the count
+DRYRUN_TOP_OPS = 6  # the plain step's ops printed by their bytes
 DRYRUN_CELLS = [("smollm-360m", "train_4k"), ("grok-1-314b", "decode_32k"),
                 ("mamba2-130m", "prefill_32k"),
                 ("recurrentgemma-9b", "decode_32k"),
@@ -2360,6 +2362,46 @@ def _sync_opt() -> OptConfig:
                      grad_clip=1.0)
 
 
+def _meta_like(tree):
+    """Meta tensors of ``tree``'s leaves' shapes, strides and dtypes."""
+    return lm_module.tree_unflatten(tree, [
+        torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                            device="meta") for x in tree_leaves(tree)])
+
+
+def counted_train_step(params, opt_state, batch, cfg, opt, trace=None):
+    """``dryrun.train_step`` under ``dryrun.StepCost``: its ``cost``."""
+    with dryrun.StepCost(trace) as counter:
+        dryrun.train_step(params, opt_state, batch, cfg, opt)
+    return counter.cost()
+
+
+def bytes_by_op(trace) -> dict:
+    out: dict = {}
+    for row in trace:
+        out[row[0]] = out.get(row[0], 0) + row[3]
+    return out
+
+
+def one_period_diff(cfg, opt) -> tuple:
+    """Bytes by aten op of one period of the (1, 1) sharded pass less the
+    plain step's on meta tensors of the same specs: the op-by-op source of
+    any difference between the two. Returns ``(total, {op: bytes})``."""
+    one_cfg = dataclasses.replace(cfg, n_layers=lm.period_len(cfg))
+    sharded, plain = [], []
+    dryrun.sharded_fit(one_cfg, DRYRUN_SHAPE, make_host_mesh(1, 1), opt,
+                       trace=sharded)
+    pspec = lm_api.param_spec(one_cfg)
+    counted_train_step(pspec, init_opt_state(pspec, opt),
+                       lm_api.input_specs(one_cfg, DRYRUN_SHAPE), one_cfg,
+                       opt, plain)
+    a, b = bytes_by_op(sharded), bytes_by_op(plain)
+    diff = {k: a.get(k, 0) - b.get(k, 0) for k in set(a) | set(b)}
+    return (sum(diff.values()),
+            {k: v for k, v in sorted(diff.items(), key=lambda kv: -abs(kv[1]))
+             if v})
+
+
 def dryrun_phase(dev, smi: str) -> dict:
     """The dry run. One process per family runs ``python -m
     repro_torch.launch.dryrun`` on one cell (``DRYRUN_CELLS``) of the 16 ×
@@ -2371,7 +2413,18 @@ def dryrun_phase(dev, smi: str) -> dict:
     against the summed ``nbytes`` of the same tensors as ``launch.train
     --mode sync`` holds them on the card, and the predicted peak (argument
     + temp bytes of the sharded pass) against the step's
-    ``torch.cuda.max_memory_allocated``."""
+    ``torch.cuda.max_memory_allocated``. Then the cost record: one
+    ``dryrun.train_step`` on the trainer's tensors on the card under
+    ``dryrun.StepCost`` equals, count for count, the same step on meta
+    tensors of their shapes (a kernel launched through ``ctypes`` would be
+    invisible to the count and show as a gap), with the ops that move most
+    of its bytes, timed without the count (CUDA events, the median, least
+    and most of ``DRYRUN_STEPS`` steps) for its counted eager bytes over
+    that time, set beside the card's 3.35 TB/s, and set beside the (1, 1)
+    sharded pass's ``cost`` with the op-by-op source of their difference;
+    each cell's ``cost``, its bytes at least its argument + output bytes.
+    ``main`` prints the phase's numbers again as one ``[dryrun] summary``
+    line near the end of the output."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
         cell_dir = pathlib.Path(out_dir) / "cells"
@@ -2439,7 +2492,58 @@ def dryrun_phase(dev, smi: str) -> dict:
                 f"({(peak - predicted) / 2**30:+.2f} GiB, "
                 f"{(peak - predicted) / peak:+.1%} of the measured); "
                 f"memory_allocated after it {allocated} B")
-            del res, parts, cap
+            step_args = (res.params, res.opt_state, cap.batch)
+            card = counted_train_step(*step_args, cfg, opt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trace = []
+            meta = counted_train_step(*map(_meta_like, step_args), cfg, opt,
+                                      trace)
+            meta_s = time.perf_counter() - t1
+            top = sorted(bytes_by_op(trace).items(), key=lambda kv: -kv[1])[
+                :DRYRUN_TOP_OPS]
+            del trace
+            require(card == meta and all(v > 0 for v in card.values()),
+                    f"dryrun: the sync step's cost on the card {card} "
+                    f"differs from the same step on meta {meta}")
+            times = []
+            for i in range(DRYRUN_STEPS + 1):  # one warm-up, then timed
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                dryrun.train_step(*step_args, cfg, opt)
+                end.record()
+                end.synchronize()
+                if i:
+                    times.append(start.elapsed_time(end))
+            step_ms = float(np.median(times))
+            rate = card["bytes_accessed"] / (step_ms / 1e3)
+            period_diff, by_op = one_period_diff(cfg, opt)
+            pc = pred["cost"]
+            gap = pc["bytes_accessed"] - card["bytes_accessed"]
+            log(f"[dryrun] cost of one sync step, smollm-360m seq "
+                f"{DRYRUN_SHAPE.seq_len} batch {DRYRUN_SHAPE.global_batch} "
+                f"({smi}): bytes_accessed {card['bytes_accessed']}, flops "
+                f"{card['flops']}, transcendentals {card['transcendentals']}"
+                f", equal on the card and on meta (meta count {meta_s:.1f} "
+                f"s); most bytes by op: " + ", ".join(
+                    f"{k} {v} ({v / card['bytes_accessed']:.1%})"
+                    for k, v in top))
+            log(f"[dryrun] the step without the count, {len(times)} steps "
+                f"by CUDA events: median {step_ms:.3f} ms, min "
+                f"{min(times):.3f}, max {max(times):.3f} "
+                f"({[round(t, 3) for t in times]}): counted eager bytes over "
+                f"the median step time {rate / 1e9:.1f} GB/s (the card's HBM "
+                f"rate 3.35 TB/s; the count is unfused aten-level traffic, "
+                f"not a measured HBM rate)")
+            log(f"[dryrun] the (1, 1) sharded pass's cost {pc} (probes "
+                f"{pred['probes']}): bytes {gap:+d} from the plain step's "
+                f"({gap / card['bytes_accessed']:+.2%}), flops "
+                f"{pc['flops'] - card['flops']:+d}, transcendentals "
+                f"{pc['transcendentals'] - card['transcendentals']:+d}; one "
+                f"period differs by {period_diff:+d} B, by op: " + ", ".join(
+                    f"{k} {v:+d}" for k, v in list(by_op.items())[:8]))
+            del res, parts, cap, step_args
             torch.cuda.empty_cache()
             records = {}
             for (a, s), proc in zip(DRYRUN_CELLS, cells):
@@ -2449,8 +2553,12 @@ def dryrun_phase(dev, smi: str) -> dict:
                         f"dryrun {a} {s}: rc {proc.returncode}: "
                         f"{out[-2000:]}")
                 rec = json.loads(path.read_text())
-                mem, coll = rec["memory"], rec["collectives"]
+                mem, coll, cost = (rec["memory"], rec["collectives"],
+                                   rec["cost"])
+                floor = mem["argument_bytes"] + mem["output_bytes"]
                 require(rec["status"] == "ok" and mem["temp_bytes"] > 0
+                        and cost["bytes_accessed"] >= floor
+                        and min(cost.values()) > 0
                         and mem["per_device_total"] == (
                             mem["argument_bytes"] + mem["output_bytes"]
                             + mem["temp_bytes"])
@@ -2462,7 +2570,7 @@ def dryrun_phase(dev, smi: str) -> dict:
                     temp_bytes=mem["temp_bytes"],
                     per_device_total=mem["per_device_total"],
                     fits=mem["fits_h100_80gb"], collectives=coll["per_kind"],
-                    seconds=rec["sharded"]["seconds"])
+                    cost=cost, seconds=rec["sharded"]["seconds"])
                 log(f"[dryrun] {a} {s} pod_16x16 (sharded pass, probes "
                     f"{rec['sharded']['probes']}, "
                     f"{rec['sharded']['seconds']:.1f} s): per device "
@@ -2471,7 +2579,9 @@ def dryrun_phase(dev, smi: str) -> dict:
                     f"total {mem['per_device_total']} B (fits 80 GiB: "
                     f"{mem['fits_h100_80gb']}); collectives "
                     f"{coll['total_bytes']} B: " + ", ".join(
-                        f"{k} {v}" for k, v in coll["per_kind"].items()))
+                        f"{k} {v}" for k, v in coll["per_kind"].items())
+                    + f"; cost {cost} (bytes {cost['bytes_accessed'] / floor:.1f}"
+                    f"x argument + output)")
         finally:
             for proc in cells:
                 if proc.poll() is None:
@@ -2480,7 +2590,9 @@ def dryrun_phase(dev, smi: str) -> dict:
     log(f"[dryrun] phase wall {time.perf_counter() - t0:.1f} s")
     return dict(counts=counts, sweep_s=sweep_s, summary=summary[0],
                 predicted=predicted, allocated=allocated, peak=peak,
-                cells=records)
+                cost=card, step_ms=step_ms, step_ms_min=min(times),
+                step_ms_max=max(times), counted_gb_s=rate / 1e9,
+                predicted_cost=pc, cells=records)
 
 
 # ---------------------------------------------------------------------------
@@ -3674,6 +3786,11 @@ def main() -> int:
         "src/repro/kernels/decode_attention.py:68",
         "B=8 KV=5 rep=3 S=552 Dh=64 bf16, pos 0..551 (the serve cache)")
     log("[families] " + json.dumps(families["rows"]))
+    log("[dryrun] summary " + json.dumps({
+        k: dry[k] for k in ("cost", "predicted_cost", "step_ms", "step_ms_min",
+                            "step_ms_max", "counted_gb_s", "peak",
+                            "predicted")}
+        | {"cells": {c: r["cost"] for c, r in dry["cells"].items()}}))
     print(smi, flush=True)
     print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry,
                                   flash_entry, decode_entry]}), flush=True)

@@ -41,25 +41,40 @@ constraints pin them. It records rank 0's view, per device:
     which ``fits_h100_80gb`` holds against 80 GiB; it counts the outputs
     alive at the peak twice, so it errs high (``per_device_lower_bound``,
     argument + output bytes, is kept beside it);
+  * ``cost``: ``{"flops", "bytes_accessed", "transcendentals"}``,
+    ``repro``'s record of XLA's cost analysis, counted op by op on rank
+    0's local tensors (:class:`StepCost`): every op's operand and result
+    bytes (a gather or scatter the elements it touches, :func:`op_bytes`),
+    eager and unfused, so above XLA's count of the same step; the
+    FLOPs of the matrix products and attention only; the transcendentals
+    of the ops XLA counts as such;
   * ``collectives``: ``{"per_kind", "total_bytes"}``, the bytes of each
     collective's result on rank 0 by ``hlo_analysis.COLLECTIVE_KINDS``,
-    ``repro``'s convention (:class:`CollectiveBytes`, counted at the
+    ``repro``'s convention (:class:`StepCost`, counted at the
     functional-collective level). The plan is DTensor's, not XLA's: a
     ``Partial`` reduced over two mesh axes is two all-reduces, one per
     axis (ROADMAP hazard H32), and the reshards differ from GSPMD's.
 
 Full depth can take tens of seconds a cell, so :func:`sharded_probes` runs
 the 1- and 2-period probes (and the tail's) that ``launch.roofline``
-counts FLOPs with and extrapolates linearly: collectives exactly (each
-period issues the same ones), ``temp_bytes`` as far as the peak grows by
-the same bytes per period.
+counts FLOPs with and extrapolates linearly: collectives and ``cost``
+exactly (each period issues the same ops; a train step's bytes grow as
+the square of the depth, so train cells add a 3-period probe and fit the
+quadratic, ROADMAP hazard H35), ``temp_bytes`` as far as the peak grows
+by the same bytes per period. ``--fast`` records no ``cost``
+(``cost_reason`` says why).
+
+PyTorch emits no HLO: ``--hlo-dump`` writes the 1-period probe's local op
+trace instead (:func:`write_op_trace`), one line per op with its local
+operand and result specs, bytes, FLOPs and transcendentals.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k [--hlo-dump]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod|--single-pod]
 
-Records: ``<out>/<arch>__<shape>__<mesh>.json``, ``--out`` defaulting to
-``build/dryrun_torch/`` under the working directory.
+Records: ``<out>/<arch>__<shape>__<mesh>.json`` (and ``.ops.txt``),
+``--out`` defaulting to ``build/dryrun_torch/`` under the working
+directory.
 """
 from __future__ import annotations
 
@@ -74,6 +89,7 @@ from typing import Any, Dict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 from torch.utils._pytree import tree_leaves as _operands
 
 from repro_torch.configs import SHAPES, get_config
@@ -90,6 +106,9 @@ from repro_torch.optim.optimizers import (OptConfig, apply_updates,
 
 OUT_DIR = Path("build") / "dryrun_torch"
 FAST_REASON = "the fast pass: the sharded pass (sharded_fit) measures it"
+#: the columns of an op trace (``--hlo-dump``, :func:`write_op_trace`)
+TRACE_COLUMNS = ("op", "operands", "results", "bytes", "flops",
+                 "transcendentals", "collective")
 #: bytes XLA counts per leaf of an output tuple (one 64-bit pointer each)
 TUPLE_ENTRY_BYTES = 8
 
@@ -292,28 +311,257 @@ def _nbytes(out) -> int:
                if isinstance(t, torch.Tensor))
 
 
-class CollectiveBytes(TorchDispatchMode):
-    """Counts, per ``hlo_analysis.COLLECTIVE_KINDS`` kind, the bytes of the
-    result of every functional collective this rank issues (``repro``'s
-    convention: an all-gather counts what it gathers, a reduce-scatter its
-    shard). DTensor desugars first (the mode passes on DTensor arguments),
-    so each collective is seen once at the local-tensor level, backward
-    included. On a CPU mesh DTensor lowers a shard-to-shard all-to-all to
-    an all-gather and a chunk (gloo has no all-to-all); inside the mode
-    that call is counted as the one all-to-all NCCL would run, the bytes of
-    its result (ROADMAP hazard H31). A kind outside ``COLLECTIVE_KINDS``
-    (a broadcast) is counted under its own name, not dropped."""
+def _held_bytes(t: torch.Tensor) -> int:
+    """The bytes of the elements ``t`` really holds: a dim of stride 0 (an
+    ``expand``) counts once, not its logical size."""
+    if t.numel() == 0:
+        return 0
+    return (math.prod(n for n, st in zip(t.shape, t.stride()) if st)
+            * t.element_size())
+
+
+#: ops that only relabel storage, or allocate without writing: no traffic
+#: (a view, ``func.is_view``, moves none either)
+_NO_TRAFFIC = frozenset({
+    "_unsafe_view", "alias", "detach", "detach_", "lift_fresh",
+    "as_strided_", "squeeze_", "unsqueeze_", "t_", "transpose_",
+    "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+    "resize_",
+    "wait_tensor",  # hands back the functional collective's own result
+    "_wrap_tensor_autograd",  # wraps that result for autograd
+})
+#: ops that write their result and read no operand: the result only
+_FILLS = frozenset({
+    "fill_", "zero_", "zeros", "ones", "full", "scalar_tensor",
+    "zeros_like", "ones_like", "full_like", "new_zeros", "new_ones",
+    "new_full",
+})
+#: in-place ops that overwrite their first operand without reading it
+_OVERWRITES = frozenset({"copy_"})
+#: ops that take part of their first operand: they read the elements they
+#: take (their result's size, at most the source's), as XLA's gather
+_GATHERS = frozenset({"index", "index_select", "gather", "embedding",
+                      "take", "take_along_dim"})
+
+
+def _indexed_numel(self: torch.Tensor, indices) -> int:
+    """The elements ``self[indices]`` names (``index_put``'s region): the
+    index tensors' broadcast shape times the dims they leave whole; a mask
+    counts as many elements as it holds (its true ones are data)."""
+    shapes, whole, dim = [], 1, 0
+    for i in indices:
+        if i is None:
+            whole *= self.shape[dim]
+            dim += 1
+        elif i.dtype in (torch.bool, torch.uint8):
+            shapes.append((i.numel(),))
+            dim += i.dim()
+        else:
+            shapes.append(tuple(i.shape))
+            dim += 1
+    return (math.prod(torch.broadcast_shapes(*shapes)) * whole
+            * math.prod(self.shape[dim:]))
+
+
+def _scatter_parts(name, args, kwargs):
+    """``(index bytes, value bytes read, touched elements, accumulates)``
+    of an op that writes part of its first operand, or None for any other
+    op."""
+    a = list(args)
+    if name in ("index_put", "index_put_", "_index_put_impl_"):
+        acc = a[3] if len(a) > 3 else kwargs.get("accumulate", False)
+        idx = sum(_held_bytes(i) for i in a[1] if i is not None)
+        return idx, _held_bytes(a[2]), _indexed_numel(a[0], a[1]), bool(acc)
+    if name in ("index_add", "index_add_", "index_copy", "index_copy_"):
+        return (_held_bytes(a[2]), _held_bytes(a[3]), a[3].numel(),
+                name.startswith("index_add"))
+    if name in ("index_fill", "index_fill_"):
+        n = a[2].numel() * a[0].numel() // max(a[0].shape[a[1]], 1)
+        val = _held_bytes(a[3]) if isinstance(a[3], torch.Tensor) else 0
+        return _held_bytes(a[2]), val, n, False
+    if name in ("scatter", "scatter_", "scatter_add", "scatter_add_",
+                "scatter_reduce", "scatter_reduce_"):
+        n = a[2].numel()  # the src elements read are the index's
+        val = n * a[3].element_size() if isinstance(a[3], torch.Tensor) \
+            else 0
+        acc = name not in ("scatter", "scatter_") or "reduce" in kwargs \
+            or len(a) > 4
+        return _held_bytes(a[2]), val, n, acc
+    return None
+
+
+def op_bytes(func, args, kwargs, out) -> int:
+    """The bytes one op moves, at its operands' (local) shapes: each tensor
+    operand read once and each result written once (an in-place op counts
+    its read and its write), by :func:`_held_bytes`; 0 for a view, an op
+    in ``_NO_TRAFFIC``, one that returns no tensor, or a copy from the host
+    onto another device (a cached constant is copied once a process, so
+    the count would depend on what ran before); a fill (``_FILLS``) its
+    result only; an ``out=`` tensor only as a result.
+
+    An op that touches part of a tensor counts what it touches. A gather
+    (``_GATHERS``) reads its indices and as many elements of its source as
+    it returns, and writes its result: 2·result + indices, XLA's count of
+    a gather, where the result is no larger than the source; a gather that
+    repeats its source (a K/V head repeat) reads each element once. A
+    scatter (``index_put_``, ``index_add_``, ``scatter_``, …,
+    :func:`_scatter_parts`) reads its indices and values and writes the
+    region it names, and reads that region too where it accumulates (a
+    region counted no larger than its target); an out-of-place one copies
+    its first operand whole first (eager PyTorch clones it), and that copy
+    counts too."""
+    name = func._overloadpacket.__name__
+    results = [t for t in _operands(out) if isinstance(t, torch.Tensor)]
+    if func.is_view or name in _NO_TRAFFIC or not results:
+        return 0
+    reads = [] if name in _FILLS else [
+        t for t in _operands((args, {k: v for k, v in kwargs.items()
+                                     if k != "out"}))
+        if isinstance(t, torch.Tensor)]
+    if reads and results[0].device.type != "cpu" and all(
+            t.device.type == "cpu" for t in reads):
+        return 0  # from the host: over PCIe (XLA: a constant of the program)
+    aten = func.namespace == "aten"  # c10d's scatter_, gather_ move whole
+    if aten and name in _GATHERS:
+        return (sum(_held_bytes(t) for t in reads[1:])
+                + min(_held_bytes(reads[0]), _held_bytes(results[0]))
+                + _held_bytes(results[0]))
+    parts = _scatter_parts(name, args, kwargs) if aten else None
+    if parts is not None:
+        idx, values, n, acc = parts
+        n = min(n, args[0].numel())
+        copy = 0 if name.endswith("_") else (_held_bytes(args[0])
+                                             + _held_bytes(results[0]))
+        return copy + idx + values + (2 if acc else 1) * n * \
+            args[0].element_size()
+    if name in _OVERWRITES:
+        reads = reads[1:]
+    return sum(_held_bytes(t) for t in reads + results)
+
+
+def _each(c: int):
+    return lambda args, kwargs, n: c * n
+
+
+def _pow(args, kwargs, n):
+    """A float exponent that is not whole, or a tensor exponent; an
+    integer power is multiplies (JAX's ``integer_pow``)."""
+    e = args[1]
+    return n if isinstance(e, torch.Tensor) or (
+        isinstance(e, float) and not e.is_integer()) else 0
+
+
+#: the transcendentals of the aten ops whose XLA counterparts XLA counts as
+#: transcendental (exp, log, tanh, logistic, rsqrt, sqrt, erf, sin/cos,
+#: power): ``(args, kwargs, result elements) -> count``; one per result
+#: element unless a comment says otherwise. Every op of a backward that is
+#: not fused into one of these is counted as the op it is.
+_TRANSCENDENTALS = {
+    **{name: _each(1) for name in (
+        "exp", "exp_", "exp2", "expm1", "log", "log_", "log2", "log10",
+        "log1p", "tanh", "tanh_", "sigmoid", "sigmoid_", "rsqrt", "rsqrt_",
+        "sqrt", "sqrt_", "erf", "erf_", "sin", "cos", "tan", "atan2")},
+    "silu": _each(1), "silu_": _each(1),  # x · logistic(x)
+    "silu_backward": _each(1),  # recomputes logistic(x)
+    "gelu": _each(1),  # erf(x / √2), or tanh under approximate="tanh"
+    # tanh's form recomputes its tanh; erf's form an erf and the pdf's exp
+    "gelu_backward": lambda args, kwargs, n: n * (
+        1 if kwargs.get("approximate", "none") == "tanh" else 2),
+    "softplus": _each(2),  # log1p(exp(βx))
+    "softplus_backward": _each(1),  # exp(βx)
+    "logaddexp": _each(2),  # exp and log1p of the difference
+    "_softmax": _each(1),  # one exp per element
+    "_log_softmax": _each(1),  # one exp per element (a log per row left out)
+    "_log_softmax_backward_data": _each(1),  # exp of the saved output
+    # an exp per element of the input, a log per element of the result
+    "logsumexp": lambda args, kwargs, n: args[0].numel() + n,
+    "pow": _pow, "pow_": _pow,
+}
+
+
+def op_flops(func, args, kwargs, out) -> int:
+    """``torch.utils.flop_counter``'s count of the op (``flop_registry``:
+    matrix products, convolutions and attention; 0 for any other op), as
+    ``FlopCounterMode`` and ``roofline.count_flops`` take it."""
+    fn = flop_registry.get(func._overloadpacket)
+    return 0 if fn is None else int(fn(*args, **kwargs, out_val=out))
+
+
+def op_transcendentals(func, args, kwargs, out) -> int:
+    fn = _TRANSCENDENTALS.get(func._overloadpacket.__name__)
+    if fn is None:
+        return 0
+    return int(fn(args, kwargs, sum(t.numel() for t in _operands(out)
+                                    if isinstance(t, torch.Tensor))))
+
+
+def _spec(t: torch.Tensor) -> str:
+    """``dtype[shape]``, and the bytes it holds where an ``expand`` makes
+    that less than its logical size."""
+    spec = (f"{str(t.dtype).replace('torch.', '')}"
+            f"[{','.join(map(str, t.shape))}]")
+    held = _held_bytes(t)
+    return spec if held == t.numel() * t.element_size() else \
+        f"{spec}(holds {held} B)"
+
+
+class StepCost(TorchDispatchMode):
+    """The per-device cost of the local ops this rank issues, ``repro``'s
+    ``cost`` record, and the bytes of its collectives.
+
+    DTensor desugars first (the mode passes on DTensor arguments), so each
+    op is seen once at its local shapes, backward and the remat recompute
+    included; ops that DTensor's sharding propagation (:class:`_Propagation`)
+    runs count nothing. Per op:
+
+      * ``bytes_accessed``: :func:`op_bytes`;
+      * ``flops``: :func:`op_flops`, matrix products and attention only,
+        where XLA also counts the elementwise ops;
+      * ``transcendentals``: :func:`op_transcendentals`.
+
+    Eager and unfused: every intermediate of an elementwise chain is
+    written and read again, which XLA's fusions keep in registers, so
+    ``bytes_accessed`` lies above XLA's count of the same step.
+
+    ``per_kind`` holds, per ``hlo_analysis.COLLECTIVE_KINDS`` kind, the
+    bytes of the result of every functional collective over more than one
+    rank (``repro``'s convention: an all-gather counts what it gathers, a
+    reduce-scatter its shard); a collective's operand and result also count
+    in ``bytes_accessed`` like any op's. On a CPU mesh DTensor lowers a
+    shard-to-shard all-to-all to an all-gather and a chunk (gloo has no
+    all-to-all); inside the mode that call is counted as the one all-to-all
+    NCCL would run, its input and its result (ROADMAP hazard H31), and
+    the gather and chunk count nothing. A kind outside ``COLLECTIVE_KINDS``
+    (a broadcast) is counted under its own name, not dropped.
+
+    ``trace``, a list where given, receives one line per op counted: the
+    aten overload, local operand and result specs, bytes, FLOPs,
+    transcendentals and, for a collective, its kind and group size
+    (:func:`write_op_trace`)."""
 
     _PATCHED = ("placement_types", "_collective_utils", "_redistribute")
 
-    def __init__(self):
+    def __init__(self, trace: list = None):
         super().__init__()
         self.per_kind = {k: 0 for k in COLLECTIVE_KINDS}
+        self.bytes_accessed = self.flops = self.transcendentals = 0
+        self.trace = trace
         self._inside_a2a = 0
         self._saved = []
 
     def add(self, kind: str, nbytes: int):
         self.per_kind[kind] = self.per_kind.get(kind, 0) + int(nbytes)
+
+    def _count(self, name, reads, results, nbytes, flops=0, trans=0,
+               collective=""):
+        self.bytes_accessed += nbytes
+        self.flops += flops
+        self.transcendentals += trans
+        if self.trace is not None:
+            self.trace.append((
+                name, " ".join(_spec(t) for t in reads) or "-",
+                " ".join(_spec(t) for t in results) or "-", nbytes, flops,
+                trans, collective or "-"))
 
     def __enter__(self):
         import importlib
@@ -330,8 +578,12 @@ class CollectiveBytes(TorchDispatchMode):
                            else _orig(*a, **k))
                 finally:
                     self._inside_a2a -= 1
-                if not self._inside_a2a and a[3].size(a[4]) > 1:
+                n = a[3].size(a[4])
+                if not self._inside_a2a and n > 1:
                     self.add("all-to-all", _nbytes(out))
+                    self._count("shard_dim_alltoall", [a[0]], [out],
+                                _held_bytes(a[0]) + _held_bytes(out),
+                                collective=f"all-to-all/{n}")
                 return out
 
             self._saved.append((mod, orig))
@@ -347,18 +599,47 @@ class CollectiveBytes(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, _dtensor_type()) for t in types):
             return NotImplemented
-        out = func(*args, **(kwargs or {}))
-        kind = _COLLECTIVE_OPS.get(func._overloadpacket.__name__)
-        if (kind is not None and not self._inside_a2a
-                and func.namespace in ("_c10d_functional",
-                                       "_c10d_functional_autograd")
-                and _group_size(args, kwargs) > 1):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self._inside_a2a or _Propagation.depth:
+            return out
+        kind = (_COLLECTIVE_OPS.get(func._overloadpacket.__name__)
+                if func.namespace in ("_c10d_functional",
+                                      "_c10d_functional_autograd") else None)
+        n = _group_size(args, kwargs) if kind else 0
+        if kind and n <= 1:  # a collective over one rank: XLA emits none
+            return out
+        if kind:
             self.add(kind, _nbytes(out))
+        self._count(str(func), [t for t in _operands((args, kwargs))
+                                if isinstance(t, torch.Tensor)],
+                    [t for t in _operands(out)
+                     if isinstance(t, torch.Tensor)],
+                    op_bytes(func, args, kwargs, out),
+                    op_flops(func, args, kwargs, out),
+                    op_transcendentals(func, args, kwargs, out),
+                    f"{kind}/{n}" if kind else "")
         return out
 
     def record(self) -> Dict[str, Any]:
         return {"per_kind": dict(self.per_kind),
                 "total_bytes": sum(self.per_kind.values())}
+
+    def cost(self) -> Dict[str, int]:
+        """``repro``'s ``cost`` keys: ``flops``, ``bytes_accessed``,
+        ``transcendentals``."""
+        return dict(flops=self.flops, bytes_accessed=self.bytes_accessed,
+                    transcendentals=self.transcendentals)
+
+
+def write_op_trace(path: Path, header: Dict[str, Any], trace) -> None:
+    """The op trace ``--hlo-dump`` writes: ``# key: value`` header lines,
+    then one tab-separated line per op (:class:`StepCost`'s ``trace``);
+    the bytes column sums to the pass's ``bytes_accessed``."""
+    lines = [f"# {k}: {v}" for k, v in header.items()]
+    lines.append("# " + "\t".join(TRACE_COLUMNS))
+    lines += ["\t".join(map(str, row)) for row in trace]
+    path.write_text("\n".join(lines) + "\n")
 
 
 def _group_size(args, kwargs) -> int:
@@ -445,11 +726,13 @@ def _local_leaves(*trees):
 
 
 def sharded_fit(cfg: ArchConfig, shape: ShapeCfg, mesh,
-                opt: OptConfig = OptConfig()) -> Dict[str, Any]:
+                opt: OptConfig = OptConfig(), trace: list = None
+                ) -> Dict[str, Any]:
     """One step of ``shape.kind`` at ``cfg``'s depth on meta DTensors over a
     fake mesh of ``mesh``'s axes (see the module docstring): ``temp_bytes``,
     ``peak_bytes``, ``argument_local_bytes`` (the arguments' local shards,
-    every leaf) and ``collectives``; ``cfg`` before
+    every leaf), ``cost`` and ``collectives`` (:class:`StepCost`, which
+    appends its op trace to ``trace`` where given); ``cfg`` before
     :func:`with_mesh_context`. The flash kernel's
     route (``attn_impl="pallas"``) raises on meta; its cells run ``auto``'s
     plain routes, as ``launch.roofline``'s probes do."""
@@ -473,7 +756,7 @@ def sharded_fit(cfg: ArchConfig, shape: ShapeCfg, mesh,
                                     dm))
         tracker = _tracker()
         tracker.track_external(*_local_leaves(*args))
-        counter = CollectiveBytes()
+        counter = StepCost(trace)
         with implicit_replication(), _Propagation(), counter, tracker:
             if shape.kind == "train":
                 out = train_step(params, args[2], batch, cfg, opt)
@@ -488,30 +771,50 @@ def sharded_fit(cfg: ArchConfig, shape: ShapeCfg, mesh,
     total = peak.get(_TOTAL_KEY, 0)
     held = peak.get(_MemRefType.OTH, 0)
     return dict(temp_bytes=total - held, peak_bytes=total,
-                argument_local_bytes=held,
+                argument_local_bytes=held, cost=counter.cost(),
                 collectives=counter.record())
 
 
 def _extrapolate(c1: Dict[str, Any], c2: Dict[str, Any], n_full: int,
-                 ct: Dict[str, Any] = None) -> Dict[str, Any]:
-    """``base + n_full · per_period (+ tail − c1)`` over the numbers of two
-    probe records (nested dicts of ints)."""
+                 ct: Dict[str, Any] = None, c3: Dict[str, Any] = None
+                 ) -> Dict[str, Any]:
+    """The whole depth's numbers from the probe records' (nested dicts of
+    ints): ``c1 + (n − 1)·d + (n − 1)(n − 2)/2·s (+ tail − c1)``, ``d`` the
+    second period's ``c2 − c1`` and ``s`` the second difference
+    ``c3 − 2·c2 + c1`` of a 3-period probe where one is given (else 0, a
+    line: ``base + n·per_period``)."""
     out: Dict[str, Any] = {}
     for k, a in c1.items():
         if isinstance(a, dict):
-            out[k] = _extrapolate(a, c2[k], n_full, ct and ct[k])
+            out[k] = _extrapolate(a, c2[k], n_full, ct and ct[k],
+                                  c3 and c3[k])
             continue
-        per = c2[k] - a
-        out[k] = a - per + n_full * per + (ct[k] - a if ct else 0)
+        d = c2[k] - a
+        s = c3[k] - 2 * c2[k] + a if c3 else 0
+        out[k] = (a + (n_full - 1) * d + (n_full - 1) * (n_full - 2) // 2 * s
+                  + (ct[k] - a if ct else 0))
     return out
 
 
 def sharded_probes(cfg: ArchConfig, shape: ShapeCfg, mesh,
-                   opt: OptConfig = OptConfig()) -> Dict[str, Any]:
+                   opt: OptConfig = OptConfig(), trace: list = None
+                   ) -> Dict[str, Any]:
     """:func:`sharded_fit` of the whole depth from the 1- and 2-period
     probes, and the tail's (``launch.roofline``'s probes): ``temp_bytes``,
-    ``peak_bytes``, ``argument_local_bytes`` and ``collectives`` linear in
-    the periods, with the probes' depths under ``probes``."""
+    ``peak_bytes``, ``argument_local_bytes``, ``cost`` and ``collectives``
+    linear in the periods (``collectives`` and a prefill's or decode's
+    ``cost`` exactly: every period issues the same ops), with the probes'
+    depths under ``probes``; ``trace`` receives the 1-period probe's op
+    trace.
+
+    A train step's ``bytes_accessed`` grows as the square of the depth:
+    each period takes its weights from the stacked leaves by ``select``,
+    whose backward writes a zero-padded gradient of the whole stack, and
+    autograd sums one such tensor per period. So train cells take a
+    3-period probe too, and ``cost`` follows the quadratic through the
+    three, exactly. The probe is temporary: once ``run_periods`` takes the
+    periods' weights by ``unbind`` (ROADMAP, the stacked-gradient
+    follow-up) the step is linear and the quadratic term goes."""
     from repro_torch.models.transformer import period_len, split_plan
 
     if cfg.family == "encdec":
@@ -520,15 +823,19 @@ def sharded_probes(cfg: ArchConfig, shape: ShapeCfg, mesh,
         per = period_len(cfg)
         _, n_full, tail = split_plan(cfg)
 
-    def at(n):
+    def at(n, trace=None):
         return sharded_fit(dataclasses.replace(
             cfg, n_layers=n, n_enc_layers=min(cfg.n_enc_layers, n)),
-            shape, mesh, opt)
+            shape, mesh, opt, trace)
 
     depths = [per, 2 * per] + ([per + len(tail)] if tail else [])
-    c1, c2 = at(per), at(2 * per)
+    c1, c2 = at(per, trace), at(2 * per)
     ct = at(per + len(tail)) if tail else None
     out = _extrapolate(c1, c2, n_full, ct)
+    if shape.kind == "train":
+        depths.append(3 * per)
+        out["cost"] = _extrapolate(c1["cost"], c2["cost"], n_full,
+                                   ct and ct["cost"], at(3 * per)["cost"])
     out["probes"] = depths
     return out
 
@@ -539,10 +846,13 @@ def mesh_name(multi_pod: bool) -> str:
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              out_dir: Path = None, verbose: bool = False, *,
-             sharded: bool = True) -> dict:
+             sharded: bool = True, hlo_dump: bool = False) -> dict:
     """One cell's record (``repro``'s keys where they carry over), saved
     to ``out_dir`` when given: the fast pass, then (``sharded``) the
-    sharded pass from the probes."""
+    sharded pass from the probes; ``hlo_dump`` writes the 1-period probe's
+    op trace beside the record (``<arch>__<shape>__<mesh>.ops.txt``)."""
+    if hlo_dump and (out_dir is None or not sharded):
+        raise ValueError("hlo_dump needs out_dir and the sharded pass")
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     name = mesh_name(multi_pod)
@@ -563,23 +873,40 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                        hardware="NVIDIA H100 SXM5 80GB (data sheet)")
             if sharded:
                 t1 = time.perf_counter()
-                sh = sharded_probes(cfg, shape, mesh)
+                trace = [] if hlo_dump else None
+                sh = sharded_probes(cfg, shape, mesh, trace=trace)
                 total = (mem["argument_bytes"] + mem["output_bytes"]
                          + sh["temp_bytes"])
                 mem.update(temp_bytes=sh["temp_bytes"], per_device_total=total,
                            fits_h100_80gb=total <= HW["hbm_bytes"])
                 del mem["temp_reason"]
-                rec.update(collectives=sh["collectives"],
+                rec.update(cost=sh["cost"], collectives=sh["collectives"],
                            sharded=dict(
                                {k: v for k, v in sh.items()
-                                if k != "collectives"},
+                                if k not in ("collectives", "cost")},
                                seconds=time.perf_counter() - t1),
                            collective_plan="DTensor's (torch "
                            f"{torch.__version__}), not XLA's")
+                if hlo_dump:
+                    out_dir.mkdir(parents=True, exist_ok=True)
+                    write_op_trace(
+                        out_dir / f"{arch}__{shape_name}__{name}.ops.txt",
+                        {"arch": arch, "shape": shape_name, "mesh": name,
+                         "probe depth": sh["probes"][0],
+                         "bytes_accessed": sum(r[3] for r in trace),
+                         "torch": torch.__version__,
+                         "rank": "0, local shapes; DTensor's plan"}, trace)
+            else:
+                rec.update(cost=None, cost_reason=FAST_REASON)
             if verbose:
                 print(mem)
+                cost = rec["cost"]
+                print({"flops": cost["flops"],
+                       "bytes accessed": cost["bytes_accessed"],
+                       "transcendentals": cost["transcendentals"]}
+                      if cost else rec["cost_reason"])
             if sharded:
-                coll = rec["collectives"]
+                coll, cost = rec["collectives"], rec["cost"]
                 kinds = ", ".join(f"{k} {v / 2**20:.1f}" for k, v in
                                   coll["per_kind"].items() if v)
                 print(f"[ok] {arch} {shape_name} {name}: args "
@@ -587,7 +914,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                       f"{mem['output_bytes'] / 2**30:.2f} GiB, temp "
                       f"{mem['temp_bytes'] / 2**30:.2f} GiB per device (fits "
                       f"80 GiB: {mem['fits_h100_80gb']}); collectives "
-                      f"{coll['total_bytes'] / 2**30:.2f} GiB ({kinds} MiB)")
+                      f"{coll['total_bytes'] / 2**30:.2f} GiB ({kinds} MiB); "
+                      f"bytes accessed {cost['bytes_accessed'] / 2**30:.2f} "
+                      f"GiB, {cost['flops']:.3e} FLOPs, "
+                      f"{cost['transcendentals']:.3e} transcendentals")
             else:
                 print(f"[ok] {arch} {shape_name} {name}: args "
                       f"{mem['argument_bytes'] / 2**30:.2f} GiB, out "
@@ -617,7 +947,12 @@ def main(argv=None) -> int:
                     help="directory of the JSON records")
     ap.add_argument("--fast", action="store_true",
                     help="argument and output bytes only (no sharded pass)")
+    ap.add_argument("--hlo-dump", action="store_true",
+                    help="write each cell's local op trace (the 1-period "
+                         "probe's) beside its record, as .ops.txt")
     args = ap.parse_args(argv)
+    if args.hlo_dump and args.fast:
+        ap.error("--hlo-dump traces the sharded pass, which --fast skips")
 
     meshes = []
     if args.single_pod or not args.multi_pod:
@@ -630,7 +965,7 @@ def main(argv=None) -> int:
     ok = fail = skip = 0
     for a, s, mp in cells:
         rec = run_cell(a, s, mp, Path(args.out), verbose=args.verbose,
-                       sharded=not args.fast)
+                       sharded=not args.fast, hlo_dump=args.hlo_dump)
         ok += rec["status"] == "ok"
         fail += rec["status"] == "error"
         skip += rec["status"] == "skipped"

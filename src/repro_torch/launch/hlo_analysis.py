@@ -2,10 +2,13 @@
 
 A copy of ``repro.launch.hlo_analysis`` (it imports only ``re`` and
 ``typing``), held to it on the same HLO strings by
-``tests/test_torch_dryrun.py``. PyTorch emits no HLO, so nothing of the
-port feeds it: the port's dry run and roofline record no collective bytes
-(``launch/roofline.py`` says why), and this module reads the HLO text of
-an XLA compile wherever one is at hand.
+``tests/test_torch_dryrun.py``. PyTorch emits no HLO, so no HLO of the
+port reaches the parser: the port's dry run counts its collective bytes
+op by op in the sharded pass (``launch.dryrun.StepCost``), filed under
+this module's ``COLLECTIVE_KINDS``, and ``launch.roofline`` reads them
+from there. :func:`analyze_collectives` and :func:`count_ops` read the
+HLO text of an XLA compile wherever one is at hand, to set XLA's plan
+beside the port's.
 
 `compiled.cost_analysis()` counts a `while` body once regardless of trip
 count, and collective bytes are not reported at all. This module segments

@@ -17,16 +17,28 @@ attention), not XLA's elementwise FLOPs, so ``useful_flops_ratio``
 to ``repro``'s. Terms, per device of the 256-device mesh:
 
     compute    = counted FLOPs / 256 / 989e12    (H100 SXM, bf16 dense)
-    memory     = (argument + output bytes per device, ``launch.dryrun``)
-                 / 3.35e12: a lower bound (the activations' traffic left
-                 out; XLA's ``bytes accessed`` has no counterpart yet)
+    memory     = bytes accessed per device / 3.35e12: the ``cost`` of the
+                 dry run's sharded pass (``launch.dryrun.sharded_probes``,
+                 the same probes), every local op's operand and result
+                 bytes, a gather or scatter's by the elements it touches
+                 (``dryrun.op_bytes``). The count is eager and unfused:
+                 each intermediate of an elementwise chain is written and
+                 read again where XLA's fusions keep it in registers, so
+                 it lies above XLA's ``bytes accessed`` of the same step;
+                 it is the traffic the port's op-by-op run asks of HBM,
+                 before any cache. ``bytes_lower_bound`` (argument +
+                 output bytes) is kept beside it.
     collective = collective bytes per device / 50e9: the result bytes of
-                 every collective rank 0 issues in the dry run's sharded
-                 pass (``launch.dryrun.sharded_probes``, the same 1- and
-                 2-period probes), over one GPU's InfiniBand port
-                 (``launch.mesh.HW["net_bw"]``: both axes of the 16 × 16
-                 mesh cross nodes). The plan is DTensor's, not XLA's.
+                 every collective rank 0 issues in the same sharded pass,
+                 over one GPU's InfiniBand port (``launch.mesh.HW
+                 ["net_bw"]``: both axes of the 16 × 16 mesh cross nodes).
+                 The plan is DTensor's, not XLA's.
     MODEL_FLOPS = 6·N·D (train) or 2·N·D, with N the active parameters.
+
+The sharded pass also counts rank 0's own FLOPs (``cost["flops"]``, the
+same registry on the local shapes); the record keeps it as
+``per_device["sharded_flops"]`` beside the compute term's, which stays
+``count_flops / 256``.
 
 ``--no-probes`` takes both counts from full-depth runs instead (FLOPs
 counted at the whole depth, the sharded pass at the whole depth), as
@@ -160,18 +172,19 @@ def analyze_cell(arch: str, shape_name: str, *, use_probes: bool = True
             _probe_cfg(ctx, ctx.n_layers, shape), shape,
             dryrun.vocab_pad_for(ctx, mesh)))
         sharded = dryrun.sharded_fit(cfg, shape, mesh)
-    coll = sharded["collectives"]
+    coll, cost = sharded["collectives"], sharded["cost"]
     fit = dryrun.memory_fit(cfg, shape, mesh)
     flops_dev = costs["flops"] / n_chips
     terms = {"compute_s": flops_dev / HW["peak_flops_bf16"],
-             "memory_s": fit["per_device_lower_bound"] / HW["hbm_bw"],
+             "memory_s": cost["bytes_accessed"] / HW["hbm_bw"],
              "collective_s": coll["total_bytes"] / HW["net_bw"]}
     bound = max(terms.values())
     dominant = max(terms, key=terms.get)
     mf, n_active = model_flops(cfg, shape)
     rec.update(
         status="ok",
-        per_device=dict(costs, flops=flops_dev,
+        per_device=dict(costs, flops=flops_dev, bytes=cost["bytes_accessed"],
+                        sharded_flops=cost["flops"],
                         bytes_lower_bound=fit["per_device_lower_bound"],
                         coll=coll["total_bytes"],
                         temp_bytes=sharded["temp_bytes"]),

@@ -114,3 +114,20 @@ def apply_rglru_decode(p, x, cache, cfg):
     out = torch.einsum("bsw,wd->bsd", h[:, None, :].to(x.dtype) * gate, p["wo"])
     out = constrain(out, cfg, residual_dims(cfg, out.shape[1]))
     return out, {"h": h, "conv": window[:, 1:, :]}
+
+
+def rglru_sequential_reference(p, x, cfg) -> torch.Tensor:
+    """Step-by-step oracle for the scan train path (``repro``'s): the
+    recurrence h_t = a_t·h_{t-1} + b_t as a loop over time."""
+    B, S, _ = x.shape
+    gate = _gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate_branch"]))
+    xw = causal_conv(torch.einsum("bsd,dw->bsw", x, p["w_rec_branch"]),
+                     p["conv_w"], p["conv_b"])
+    a, gx = _gates(p, xw)
+    h = torch.zeros((B, a.shape[-1]), dtype=torch.float32, device=x.device)
+    hs = []
+    for t in range(S):
+        h = a[:, t] * h + gx[:, t]
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype) * gate
+    return torch.einsum("bsw,wd->bsd", y, p["wo"])

@@ -12,9 +12,10 @@ writes, per arch and step, the largest absolute difference of each output
 (``full_tensor()``) from the plain one, and its largest magnitude, as
 JSON to ``OUT``. The plain and the DTensor runs start from the same
 seeded weights and inputs in every rank. The DTensor steps run as the dry
-run runs them, under ``implicit_replication()`` and its collective
-counter (a dispatch mode, so DTensor takes its Python dispatch path; its
-C++ fast path mis-shapes some of these steps' backward locals).
+run runs them, under ``implicit_replication()`` and its cost counter
+(``dryrun.StepCost``, a dispatch mode, so DTensor takes its Python
+dispatch path; its C++ fast path mis-shapes some of these steps' backward
+locals).
 """
 import dataclasses
 import json
@@ -95,7 +96,7 @@ def run_arch(arch: str, dm) -> dict:
     state = init_opt_state(params, opt)
     new_p, new_s = apply_updates(params, tree_unflatten(params, grads), state,
                                  opt)
-    with implicit_replication(), dryrun.CollectiveBytes():
+    with implicit_replication(), dryrun.StepCost():
         d_batch = SH.to_named(batch, SH.data_pspecs(batch, MESH, cfg), dm)
         d_loss, d_grads = dryrun.loss_and_grads(P, d_batch, cfg)
         d_state = SH.to_named(state, opt_state_pspecs(p_sh, opt), dm)
@@ -111,7 +112,7 @@ def run_arch(arch: str, dm) -> dict:
 
     batch = _inputs(cfg, "prefill", gen)
     logits, caches = dryrun.prefill_step(params, batch, cfg)
-    with implicit_replication(), dryrun.CollectiveBytes():
+    with implicit_replication(), dryrun.StepCost():
         d_batch = SH.to_named(batch, SH.data_pspecs(batch, MESH, cfg), dm)
         d_logits, d_caches = dryrun.prefill_step(P, d_batch, cfg)
     res["prefill"] = {"logits": _diff([logits], [d_logits]),
@@ -122,7 +123,7 @@ def run_arch(arch: str, dm) -> dict:
     d_caches = SH.to_named(_clone(caches), SH.cache_pspecs(caches, MESH, cfg),
                            dm)
     logits, caches = dryrun.serve_step(params, caches, inp, cfg)
-    with implicit_replication(), dryrun.CollectiveBytes():
+    with implicit_replication(), dryrun.StepCost():
         d_inp = SH.to_named(inp, SH.data_pspecs(inp, MESH, cfg), dm)
         d_logits, d_caches = dryrun.serve_step(P, d_caches, d_inp, cfg)
     res["decode"] = {"logits": _diff([logits], [d_logits]),

@@ -6,6 +6,10 @@
     argument and output bytes equal ``repro``'s
     ``build_lowering(...).compile().memory_analysis()`` for train, prefill
     and decode;
+  * on the same cells the sharded pass's ``bytes_accessed`` is at least
+    the argument + output bytes, and its transcendentals, and a prefill's
+    or decode's bytes, lie within bands of XLA's cost analysis of
+    ``repro``'s unrolled step;
   * ``hlo_analysis`` (a copy) equals ``repro``'s on the same HLO strings:
     a compiled scan, and hand-written HLO with a while loop of known trip
     count and collectives;
@@ -81,6 +85,65 @@ def test_memory_fit_equals_xla_memory_analysis_on_a_host_mesh(arch):
         assert got["output_bytes"] == mem.output_size_in_bytes, kind
         assert got["temp_bytes"] is None and got["temp_reason"]
         assert got["fits_h100_80gb"]
+
+
+#: the ranges the port's count keeps to, as a multiple of XLA's count of
+#: ``repro``'s unrolled step (its roofline's probes: no ``while`` body
+#: counted once), by kind: measured on the cells below at 0.47-0.94
+#: (decode bytes: XLA slices each layer's cache out of the stacked one
+#: and concatenates the written ones back, copies that the port, writing
+#: the token in place, does not make), 0.82-1.26 (prefill bytes),
+#: 0.90-1.00 (forward
+#: transcendentals: exact but for the RG-LRU gate's and SSD's forms) and
+#: 1.10-1.27 (train transcendentals: ``silu_backward`` recomputes the
+#: logistic that XLA keeps from the forward)
+XLA_BANDS = {"bytes_accessed": {"prefill": (0.75, 1.35),
+                                "decode": (0.45, 0.97)},
+             "transcendentals": {"train": (1.0, 1.35),
+                                 "prefill": (0.85, 1.0),
+                                 "decode": (0.85, 1.0)}}
+COST_KINDS = dict(KINDS, decode_512=ShapeCfg("decode_512", seq_len=512,
+                                             global_batch=2, kind="decode"))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "grok-1-314b",
+                                  "mamba2-130m", "recurrentgemma-9b",
+                                  "whisper-small", "internvl2-76b"])
+def test_bytes_accessed_cover_the_arguments_and_outputs(arch):
+    """On a (1, 1) host mesh at reduced configs, the sharded pass's
+    per-device ``bytes_accessed`` is at least the step's argument + output
+    bytes, for train, prefill and decode (a 16- and a 512-token cache).
+    Against XLA's cost analysis of ``repro``'s same step, unrolled as
+    ``repro``'s roofline probes compile it: the transcendentals, and the
+    bytes of a prefill or decode, within ``XLA_BANDS``; every ratio is
+    printed. Train bytes are not held: XLA fuses the backward's
+    elementwise chains, which the port runs op by op."""
+    from repro.launch.mesh import cost_analysis_dict
+    build_lowering = repro_launch("dryrun").build_lowering
+    probe_cfg = repro_launch("roofline")._probe_cfg
+    jmesh, mesh = jax_host_mesh(1, 1), make_host_mesh(1, 1)
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    for name, shape in COST_KINDS.items():
+        fit = dryrun.memory_fit(cfg, shape, mesh)
+        cost = dryrun.sharded_fit(cfg, shape, mesh)["cost"]
+        xla = cost_analysis_dict(build_lowering(
+            probe_cfg(jcfg, jcfg.n_layers, shape), shape, jmesh).compile())
+        ratio = {"bytes_accessed": cost["bytes_accessed"]
+                 / xla["bytes accessed"],
+                 "transcendentals": cost["transcendentals"]
+                 / xla["transcendentals"],
+                 "flops": cost["flops"] / xla["flops"]}
+        floor = fit["argument_bytes"] + fit["output_bytes"]
+        print(f"{arch} {name}: {cost}; over XLA's: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ratio.items())
+            + f"; argument + output {floor}")
+        assert isinstance(cost["bytes_accessed"], int), name
+        assert cost["bytes_accessed"] >= floor > 0, name
+        assert cost["flops"] > 0 and cost["transcendentals"] > 0, name
+        for key, bands in XLA_BANDS.items():
+            if shape.kind in bands:
+                lo, hi = bands[shape.kind]
+                assert lo <= ratio[key] <= hi, (name, key, ratio[key])
 
 
 def _scan_hlo():
@@ -240,8 +303,9 @@ def test_flop_count_per_period_extrapolates_exactly():
 
 def test_roofline_without_probes_equals_the_probes(monkeypatch):
     """``analyze_cell(use_probes=False)`` (the full-depth FLOP count and
-    sharded pass) gives the probed path's FLOPs and collective bytes, on
-    a 4-layer reduced config over the single-pod mesh."""
+    sharded pass) gives the probed path's FLOPs, collective bytes and
+    bytes accessed (the memory term), on a 4-layer reduced config over
+    the single-pod mesh."""
     cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
                               n_layers=4)
     shape = ShapeCfg("t", seq_len=32, global_batch=32, kind="train")
@@ -250,9 +314,15 @@ def test_roofline_without_probes_equals_the_probes(monkeypatch):
     probed = roofline.analyze_cell("smollm-360m", "t")
     full = roofline.analyze_cell("smollm-360m", "t", use_probes=False)
     assert probed["status"] == full["status"] == "ok"
-    assert probed["probes"] == [1, 2] and full["probes"] is None
+    assert probed["probes"] == [1, 2, 3] and full["probes"] is None
     assert full["per_device"]["flops"] == probed["per_device"]["flops"] > 0
     assert full["full_graph_collectives"] == probed["full_graph_collectives"]
     assert sum(full["full_graph_collectives"].values()) > 0
     assert full["terms_s"]["collective_s"] == \
         probed["terms_s"]["collective_s"] > 0
+    assert full["per_device"]["bytes"] == probed["per_device"]["bytes"] > \
+        probed["per_device"]["bytes_lower_bound"]
+    assert full["terms_s"]["memory_s"] == probed["terms_s"]["memory_s"] == \
+        probed["per_device"]["bytes"] / HW["hbm_bw"]
+    assert full["per_device"]["sharded_flops"] == \
+        probed["per_device"]["sharded_flops"] > 0

@@ -9,12 +9,21 @@ on DTensors, ``sharding.to_named`` and ``fake_device_mesh``):
   * on a (4, 1) FSDP-only fake mesh, one reduced dense train step's
     collective bytes equal a count derived by hand from the weights;
   * the probes' extrapolation to 4 periods equals the direct 4-period run:
-    collectives exactly, ``temp_bytes`` within 1 %;
+    collectives and ``cost`` exactly, ``temp_bytes`` within 1 %;
+  * ``dryrun.StepCost``'s counting rules on hand-sized ops, with exact
+    bytes; the sharded pass's ``cost["flops"]`` equal to
+    ``roofline.count_flops`` of the same step on a (1, 1) mesh, and a
+    quarter of it per device on a (4, 1) mesh;
+  * ``--hlo-dump`` writes the 1-period probe's op trace, whose bytes
+    column sums to that probe's ``bytes_accessed``;
+  * ``--fast`` records no ``cost``, with its reason;
   * ``fake_device_mesh`` leaves no process group behind, after an error
     too, and refuses to open over another group;
   * the sharded pass imports no JAX (a fresh process).
 """
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import socket
@@ -30,7 +39,7 @@ dist = pytest.importorskip("torch.distributed")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.distributed import sharding as SH  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.hlo_analysis import COLLECTIVE_KINDS  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import api  # noqa: E402
@@ -171,18 +180,217 @@ def test_probes_extrapolate_to_a_direct_run():
     """4 periods from the 1- and 2-period probes against the 4-period run
     itself, on a (2, 2) fake mesh: the collectives equal, ``temp_bytes``
     within 1 % (the peak grows by the same bytes per period only as far
-    as it sits at the same point of the step)."""
+    as it sits at the same point of the step), and ``cost`` equal through
+    the 3-period probe (a train step's bytes grow as the square of the
+    depth)."""
     cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
                               n_layers=4)
     mesh = make_host_mesh(2, 2)
     shape = ShapeCfg("t", 32, 8, "train")
     probed = dryrun.sharded_probes(cfg, shape, mesh)
     direct = dryrun.sharded_fit(cfg, shape, mesh)
-    assert probed["probes"] == [1, 2]
+    assert probed["probes"] == [1, 2, 3]  # train: the quadratic's third
     assert probed["collectives"] == direct["collectives"]
+    assert probed["cost"] == direct["cost"]
+    assert all(isinstance(v, int) and v > 0
+               for v in direct["cost"].values())
     assert probed["argument_local_bytes"] == direct["argument_local_bytes"]
     assert probed["temp_bytes"] == pytest.approx(direct["temp_bytes"],
                                                  rel=0.01)
+
+
+def _ops_mm():
+    a = torch.ones((4, 8), dtype=torch.bfloat16)
+    b = torch.ones((8, 16), dtype=torch.bfloat16)
+    return lambda: torch.mm(a, b), dict(
+        bytes_accessed=(4 * 8 + 8 * 16 + 4 * 16) * 2, flops=2 * 4 * 8 * 16,
+        transcendentals=0)
+
+
+def _ops_views():
+    x = torch.ones((4, 8))
+
+    def run():
+        x.view(32)
+        x.t()
+        torch.ops.aten._unsafe_view(x, [32])
+        x.detach()
+        torch.empty((64,))
+        torch.empty_strided((4, 4), (4, 1))
+        x.new_empty((16,))
+    return run, dict(bytes_accessed=0, flops=0, transcendentals=0)
+
+
+def _ops_expand():
+    row, full = torch.ones((1, 8)), torch.ones((4, 8))
+    # the expanded operand holds its 8 elements; the other 32, the result 32
+    return lambda: torch.add(row.expand(4, 8), full), dict(
+        bytes_accessed=(8 + 32 + 32) * 4, flops=0, transcendentals=0)
+
+
+def _ops_add_():
+    x, y = torch.ones((4, 8)), torch.ones((4, 8))
+    # x read and written, y read
+    return lambda: x.add_(y), dict(bytes_accessed=3 * 32 * 4, flops=0,
+                                   transcendentals=0)
+
+
+def _ops_fills():
+    x = torch.ones((4, 8))
+
+    def run():
+        torch.zeros((4, 8))  # its result, 128 B
+        x.zero_()  # written, not read: 128 B
+        torch.full((2, 8), 3.0)  # 64 B
+    return run, dict(bytes_accessed=128 + 128 + 64, flops=0,
+                     transcendentals=0)
+
+
+def _ops_softmax():
+    x = torch.ones((4, 8))
+    return lambda: torch.softmax(x, dim=-1), dict(
+        bytes_accessed=2 * 32 * 4, flops=0, transcendentals=32)
+
+
+def _ops_cache_write():
+    cache = torch.zeros((2, 64, 4, 16))  # (B, S, H, Dh), 32 KiB
+    rows, slot = torch.arange(2), torch.tensor([5, 9])
+    tok = torch.ones((2, 4, 16))
+    # one token per row: the indices (2 × 2 int64), the token read, the
+    # token's place written; not the cache's 32 KiB twice
+    return lambda: cache.index_put_((rows, slot), tok), dict(
+        bytes_accessed=2 * 2 * 8 + 2 * 512, flops=0, transcendentals=0)
+
+
+def _ops_gathers():
+    cache = torch.zeros((2, 64, 4, 16))
+    rows, slot = torch.arange(2), torch.tensor([5, 9])
+    table, ids = torch.ones((100, 8)), torch.zeros((3, 5), dtype=torch.long)
+
+    def run():
+        cache[rows, slot]  # the (2, 4, 16) taken, read and written
+        torch.nn.functional.embedding(ids, table)  # (3, 5, 8)
+        torch.index_select(table, 0, ids[0])  # (5, 8)
+    return run, dict(bytes_accessed=(32 + 2 * 512) + (120 + 2 * 480)
+                     + (40 + 2 * 160), flops=0, transcendentals=0)
+
+
+def _ops_scatters():
+    acc, idx, src = torch.zeros((8, 4)), torch.tensor([1, 3, 1]), \
+        torch.ones((3, 4))
+
+    def run():
+        acc.index_add_(0, idx, src)  # idx, src, the 3 rows read and written
+        acc.index_add(0, idx, src)  # the same after a copy of acc (2 × 128)
+    one = 24 + 48 + 2 * 48
+    return run, dict(bytes_accessed=one + (2 * 128 + one), flops=0,
+                     transcendentals=0)
+
+
+@pytest.mark.parametrize("case", ["mm", "views", "expand", "add_", "fills",
+                                  "softmax", "cache_write", "gathers",
+                                  "scatters"])
+def test_step_cost_counting_rules(case):
+    """Exact bytes, FLOPs and transcendentals of hand-sized ops: a bf16
+    (M, K) @ (K, N) moves (MK + KN + MN)·2 B; views, ``_unsafe_view``,
+    ``detach`` and allocations move none; an ``expand``ed operand counts
+    the elements it holds; an in-place ``add_`` its read and its write; a
+    fill its result; a softmax one transcendental per element; a one-token
+    ``index_put_`` into a (B, S, H, Dh) cache its indices and the token
+    twice; a gather (``index``, ``embedding``, ``index_select``) its
+    indices and its result twice; an ``index_add_`` its indices, its source
+    and the rows it adds to twice, and an out-of-place one also the copy of
+    its first operand."""
+    run, want = globals()[f"_ops_{case}"]()
+    trace = []
+    with dryrun.StepCost(trace) as counter:
+        run()
+    assert counter.cost() == want
+    assert sum(row[3] for row in trace) == want["bytes_accessed"]
+    assert counter.record()["total_bytes"] == 0
+
+
+KINDS = {"train": ShapeCfg("t", 16, 8, "train"),
+         "prefill": ShapeCfg("p", 16, 4, "prefill"),
+         "decode": ShapeCfg("d", 16, 4, "decode")}
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_sharded_flops_equal_count_flops(kind):
+    """Reduced smollm-360m: on a (1, 1) mesh the sharded pass's ``flops``
+    equal ``roofline.count_flops`` of the same step; on a (4, 1) mesh
+    (data parallel) each device's are a quarter of the whole batch's."""
+    cfg, shape = get_config("smollm-360m").reduced(), KINDS[kind]
+    for (d, m) in ((1, 1), (4, 1)):
+        mesh = make_host_mesh(d, m)
+        ctx = dryrun.with_mesh_context(cfg, mesh)
+        want = roofline.count_flops(ctx, shape, dryrun.vocab_pad_for(ctx,
+                                                                     mesh))
+        got = dryrun.sharded_fit(cfg, shape, mesh)["cost"]
+        assert got["flops"] * d == want > 0, (d, m)
+        assert got["bytes_accessed"] > 0 and got["transcendentals"] > 0
+
+
+def test_hlo_dump_writes_the_op_trace(tmp_path, monkeypatch):
+    """``--hlo-dump`` on a 4-layer reduced config over the single-pod mesh:
+    ``<arch>__<shape>__<mesh>.ops.txt`` beside the record, a header naming
+    the cell and the probe depth, one line per op, its bytes column
+    summing to the 1-period probe's ``bytes_accessed``; a collective line
+    carries its kind and group size."""
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              n_layers=4)
+    shape = ShapeCfg("t", seq_len=32, global_batch=32, kind="train")
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: cfg)
+    monkeypatch.setattr(dryrun, "SHAPES", {"t": shape})
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = dryrun.main(["--arch", "smollm-360m", "--shape", "t",
+                          "--single-pod", "--hlo-dump", "--verbose",
+                          "--out", str(tmp_path)])
+    assert rc == 0, out.getvalue()
+    assert "'bytes accessed'" in out.getvalue()
+    rec = json.loads((tmp_path / "smollm-360m__t__pod_16x16.json")
+                     .read_text())
+    lines = (tmp_path / "smollm-360m__t__pod_16x16.ops.txt").read_text() \
+        .splitlines()
+    header = dict(ln[2:].split(": ", 1) for ln in lines
+                  if ln.startswith("# ") and ": " in ln)
+    assert header["arch"] == "smollm-360m" and header["shape"] == "t"
+    assert header["mesh"] == "pod_16x16" and header["probe depth"] == "1"
+    assert header["torch"] == torch.__version__
+    rows = [ln.split("\t") for ln in lines if not ln.startswith("#")]
+    assert all(len(r) == len(dryrun.TRACE_COLUMNS) for r in rows)
+    col = dryrun.TRACE_COLUMNS.index
+    probe = dryrun.sharded_fit(dataclasses.replace(cfg, n_layers=1), shape,
+                               make_host_mesh(16, 16))["cost"]
+    assert sum(int(r[col("bytes")]) for r in rows) == \
+        probe["bytes_accessed"] == int(header["bytes_accessed"])
+    assert sum(int(r[col("flops")]) for r in rows) == probe["flops"]
+    assert sum(int(r[col("transcendentals")]) for r in rows) == \
+        probe["transcendentals"]
+    kinds = {r[col("collective")] for r in rows} - {"-"}
+    assert kinds and all(k.split("/")[0] in COLLECTIVE_KINDS
+                         and int(k.split("/")[1]) > 1 for k in kinds)
+    assert rec["cost"]["bytes_accessed"] > probe["bytes_accessed"]
+    assert rec["sharded"]["probes"] == [1, 2, 3]
+
+
+def test_fast_pass_records_no_cost(tmp_path):
+    """``--fast`` records ``cost: null`` with its reason, as it does
+    ``temp_bytes``; ``--hlo-dump`` (the sharded pass's trace) refuses it."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
+                          "--single-pod", "--fast", "--out", str(tmp_path)])
+    assert rc == 0
+    rec = json.loads((tmp_path / "smollm-360m__decode_32k__pod_16x16.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["cost"] is None
+    assert rec["cost_reason"] == rec["memory"]["temp_reason"] == \
+        dryrun.FAST_REASON
+    with pytest.raises(SystemExit), \
+            contextlib.redirect_stderr(io.StringIO()):
+        dryrun.main(["--arch", "smollm-360m", "--fast", "--hlo-dump"])
+    assert not list(tmp_path.glob("*.ops.txt"))
 
 
 def test_fake_device_mesh_leaves_no_group_behind():

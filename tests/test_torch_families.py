@@ -402,6 +402,24 @@ def test_rglru_scan_state_matches_repros_associative_scan(S):
            f"S={S} linear_scan", PIECE_TOL)
 
 
+@pytest.mark.parametrize("S", [7, 33])
+def test_rglru_sequential_reference_matches_repros(S):
+    """The port's step-by-step oracle against ``repro``'s
+    ``rglru_sequential_reference`` within 1e-5, and against the port's
+    scan train path."""
+    jc, pc = _cfgs("recurrentgemma-9b")
+    jp = JRG.init_rglru_block(jax.random.key(5), jc, jnp.float32)
+    p = params_from_jax(jp, device=CPU)
+    x = np.random.default_rng(100 + S).normal(
+        size=(B, S, jc.d_model)).astype(np.float32)
+    got = RG.rglru_sequential_reference(p, _t(x), pc)
+    assert got.shape == (B, S, jc.d_model)
+    _close(got, _jit(JRG.rglru_sequential_reference, jc)(jp, x),
+           f"S={S} oracle vs repro's", PIECE_TOL)
+    _close(RG.apply_rglru_train(p, _t(x), pc), got.numpy(),
+           f"S={S} scan vs oracle", PIECE_TOL)
+
+
 # ---------------------------------------------------------------------------
 # the commands
 # ---------------------------------------------------------------------------
