@@ -47,7 +47,10 @@ per-device ``temp_bytes`` and collective bytes by kind; then for
 smollm-360m at the ``[train]`` shape on a (1, 1) mesh the predicted
 argument bytes against the tensors the trainer holds on the card, and the
 predicted peak, argument + temp bytes, against the sync step's
-``max_memory_allocated``).
+``max_memory_allocated``), and the elastic re-mesh checkpoint (``[ckpt]``, right after
+``[train]``: smollm-360m's sync state saved, restored onto the card from
+meta likes and resumed bit for bit as ``[train]``'s uninterrupted sync
+run; a DTensor round trip over a one-rank NCCL mesh).
 The attention kernels are held to their plain versions in both the
 folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one, and
 timed beside SDPA. It prints each kernel's ptxas registers and spills,
@@ -110,6 +113,8 @@ from repro_torch.examples import quickstart as example_quickstart  # noqa: E402
 from repro_torch.examples import serve_decode as example_serve_decode  # noqa: E402
 from repro_torch.optim import compress  # noqa: E402
 from repro_torch.optim.optimizers import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.checkpoint.ckpt import (restore_checkpoint,  # noqa: E402
+                                         save_checkpoint)
 from repro_torch.models.module import tree_leaves  # noqa: E402
 from repro_torch.models import api as lm_api  # noqa: E402
 from repro_torch.models import module as lm_module  # noqa: E402
@@ -770,6 +775,11 @@ HYBRID_KW = dict(n_clusters_per_group=2, workers_per_cluster=2, horizon=0.2,
                  interval_s1=0.04, interval_s2=0.05, x1_gbps=2e-3,
                  x2_gbps=2e-3, sw3_gbps=3e-3, size_bits=30112,
                  sw12_slots=4, sw3_slots=4)
+# the profiled repeats are shorter runs of the same configurations (the
+# trainer's 1 of 4 updates a worker, the hybrid's first 0.1 s of 0.2: 10 of
+# its 24 window landings), which keeps the script inside its time limit
+TRAINER_PROFILED_UPDATES = 1
+HYBRID_PROFILED_HORIZON = 0.1
 
 
 class Clocks:
@@ -2161,8 +2171,6 @@ def train_phase(dev) -> dict:
     log(f"[train] sync smollm-360m full width, batch 32 seq 256: 3 steps in "
         f"{res.wall:.3f} s ({3 / res.wall:.3f} steps/s, the loss read back "
         f"every step); losses {[round(l, 6) for l in res.losses]}")
-    del res
-    torch.cuda.empty_cache()
     # reduced size: the card against the CPU
     reset_counts()
     card = launch_train.main(TRAIN_REDUCED)
@@ -2197,7 +2205,7 @@ def train_phase(dev) -> dict:
                 max_abs_err=err, ps_step_ms=float(np.mean(ps_ms[1:])),
                 ps_step_bound_ms=ps_bound, step_s=wall_1,
                 idle_share=idle, idle_share_profiled=idle_p,
-                peak_bytes=peak - held)
+                peak_bytes=peak - held, sync=res)
 
 
 # ---------------------------------------------------------------------------
@@ -2402,6 +2410,24 @@ def one_period_diff(cfg, opt) -> tuple:
              if v})
 
 
+def transcendentals_by_op(path) -> dict:
+    """``{op: (transcendentals, {result spec: ops})}`` of an ``--hlo-dump``
+    op trace (the 1-period probe), the ops that count any."""
+    col = dryrun.TRACE_COLUMNS.index
+    out: dict = {}
+    for ln in pathlib.Path(path).read_text().splitlines():
+        if ln.startswith("#"):
+            continue
+        row = ln.split("\t")
+        n = int(row[col("transcendentals")])
+        if n:
+            entry = out.setdefault(row[0], [0, {}])
+            entry[0] += n
+            spec = row[col("results")]
+            entry[1][spec] = entry[1].get(spec, 0) + 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
 def dryrun_phase(dev, smi: str) -> dict:
     """The dry run. One process per family runs ``python -m
     repro_torch.launch.dryrun`` on one cell (``DRYRUN_CELLS``) of the 16 ×
@@ -2433,7 +2459,8 @@ def dryrun_phase(dev, smi: str) -> dict:
                                   / "src"))
         cells = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
-             "--shape", s, "--single-pod", "--out", str(cell_dir)], env=env,
+             "--shape", s, "--single-pod", "--hlo-dump", "--out",
+             str(cell_dir)], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for a, s in DRYRUN_CELLS]
         try:
@@ -2582,6 +2609,15 @@ def dryrun_phase(dev, smi: str) -> dict:
                         f"{k} {v}" for k, v in coll["per_kind"].items())
                     + f"; cost {cost} (bytes {cost['bytes_accessed'] / floor:.1f}"
                     f"x argument + output)")
+                by_op = transcendentals_by_op(
+                    cell_dir / f"{a}__{s}__pod_16x16.ops.txt")
+                records[f"{a} {s}"]["probe_transcendentals"] = {
+                    k: v[0] for k, v in by_op.items()}
+                log(f"[dryrun] {a} {s}: the 1-period probe's "
+                    f"transcendentals by op (torch {torch.__version__}): "
+                    + ", ".join(f"{k} {n} (" + ", ".join(
+                        f"{c}x {spec}" for spec, c in specs.items()) + ")"
+                        for k, (n, specs) in by_op.items()))
         finally:
             for proc in cells:
                 if proc.poll() is None:
@@ -2593,6 +2629,211 @@ def dryrun_phase(dev, smi: str) -> dict:
                 cost=card, step_ms=step_ms, step_ms_min=min(times),
                 step_ms_max=max(times), counted_gb_s=rate / 1e9,
                 predicted_cost=pc, cells=records)
+
+
+# ---------------------------------------------------------------------------
+# [ckpt]: the elastic re-mesh checkpoint of the sync state at full width
+# ---------------------------------------------------------------------------
+CKPT_SYNC = TRAIN_SYNC[:TRAIN_SYNC.index("--steps")] + ["--log-every", "0"]
+CKPT_ARCH = TRAIN_SYNC[TRAIN_SYNC.index("--arch") + 1]
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes (a DTensor: its local tensor; NaNs and
+    signed zeros told apart)."""
+    a, b = (x.to_local() if hasattr(x, "to_local") else x for x in (a, b))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def trees_same_bits(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(same_bits(x, y) for x, y in zip(la, lb))
+
+
+def synced_wall(fn, *a, **kw):
+    """``(seconds, fn(*a, **kw))``, the card synchronized before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def on_device(tree, dev):
+    """A tree of ``tree``'s structure with ``dev`` at every leaf: the
+    shardings that place a restore on one device."""
+    return lm_module.tree_unflatten(tree, [dev] * len(tree_leaves(tree)))
+
+
+class Timed:
+    """Replaces ``module.name`` inside a ``with`` block: each call's wall
+    (:func:`synced_wall`) in ``seconds``, its arguments and result handed
+    to ``check`` where given."""
+
+    def __init__(self, module, name, check=None):
+        self.module, self.name, self.check = module, name, check
+        self.fn, self.seconds = getattr(module, name), []
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+    def __call__(self, *a, **kw):
+        seconds, out = synced_wall(self.fn, *a, **kw)
+        self.seconds.append(seconds)
+        if self.check is not None:
+            self.check(a, kw, out)
+        return out
+
+
+def dtensor_round_trip(state, ckpt_dir: str, dev) -> dict:
+    """``state`` (params, AdamW state) placed by ``sharding.to_named`` with
+    smollm-360m's ``params_pspecs_cfg``/``opt_state_pspecs`` over a (1, 1)
+    ("data", "model") mesh of one NCCL rank on ``dev`` (gloo on the CPU),
+    saved from the DTensors, restored from meta likes onto the plain device
+    and back onto the placements. Opens its own process group and closes
+    it, after an error too."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.optim.optimizers import opt_state_pspecs
+
+    require(not dist.is_initialized(), "ckpt: a process group is open")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        dm = init_device_mesh(dev.type, (1, 1),
+                              mesh_dim_names=("data", "model"))
+        cfg, opt = get_config(CKPT_ARCH), _sync_opt()
+        p_like = lm_api.param_spec(cfg)
+        o_like = init_opt_state(p_like, opt)
+        p_spec = SH.params_pspecs_cfg(p_like, dm, cfg)
+        o_spec = opt_state_pspecs(p_spec, opt)
+        placed = (SH.to_named(state[0], p_spec, dm),
+                  SH.to_named(state[1], o_spec, dm))
+        shardings = (SH.named_shardings(p_like, p_spec, dm),
+                     SH.named_shardings(o_like, o_spec, dm))
+        out = {}
+        with tempfile.TemporaryDirectory(dir=ckpt_dir) as d:
+            out["save_s"], _ = synced_wall(save_checkpoint, d, 1, *placed)
+            for name, (p_sh, o_sh) in (
+                    ("plain", (on_device(p_like, dev),
+                               on_device(o_like, dev))),
+                    ("placed", shardings)):
+                out[f"restore_{name}_s"], (_, params, opt_state) = \
+                    synced_wall(restore_checkpoint, d, params_like=p_like,
+                                opt_like=o_like, shardings=p_sh,
+                                opt_shardings=o_sh)
+                want = state if name == "plain" else placed
+                out[f"{name}_bitwise"] = trees_same_bits(
+                    (params, opt_state), want)
+                if name == "placed":
+                    out["placements_equal"] = all(
+                        x.placements == y.placements == sh.placements()
+                        for x, y, sh in zip(tree_leaves((params, opt_state)),
+                                            tree_leaves(placed),
+                                            tree_leaves(shardings)))
+                del params, opt_state
+        out["placements"] = sorted({str(x.placements)
+                                    for x in tree_leaves(placed)})
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def ckpt_phase(dev, smi: str, uninterrupted) -> dict:
+    """``[ckpt]``: smollm-360m's sync state at the ``[train]`` shape
+    (params and AdamW m, v; D = 361,821,120), counted from 0: the one-step
+    run saving its state (``--ckpt``); ``[train]``'s three-step run
+    (``uninterrupted``) resumed from that step, whose restore is from meta
+    likes (``api.param_spec``) placed on the card (``shardings``) and
+    bitwise the saved state, and whose losses, params and optimizer state
+    after the next two steps are bitwise the uninterrupted run's. A meta
+    like without a sharding raises. Then the restored state's DTensor round
+    trip over a one-rank NCCL mesh (:func:`dtensor_round_trip`). Save and
+    restore walls beside the card's name and power limit."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_counts()
+    steps = int(TRAIN_SYNC[TRAIN_SYNC.index("--steps") + 1])
+    restored = {}
+
+    def check_restore(a, kw, out):
+        step, params, opt_state = out
+        restored.update(step=step, params=trees_same_bits(params, one.params),
+                        opt=trees_same_bits(opt_state, one.opt_state),
+                        meta=all(x.is_meta for x in tree_leaves(
+                            (kw["params_like"], kw["opt_like"]))),
+                        on_card=all(x.device.type == dev.type for x in
+                                    tree_leaves((params, opt_state))),
+                        state=(params, opt_state))
+
+    with tempfile.TemporaryDirectory() as d:
+        with Timed(launch_train, "save_checkpoint") as saves:
+            one = launch_train.main(CKPT_SYNC + ["--steps", "1", "--ckpt", d])
+            nbytes = os.path.getsize(pathlib.Path(d) / "ckpt_00000001.npz")
+            with Timed(launch_train, "restore_checkpoint",
+                       check_restore) as restores:
+                resumed = launch_train.main(
+                    CKPT_SYNC + ["--steps", str(steps), "--ckpt", d])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        state = restored.pop("state")
+        require(restored == dict(step=1, params=True, opt=True, meta=True,
+                                 on_card=True),
+                f"ckpt: the resume's restore from meta likes {restored}")
+        require(resumed.losses == uninterrupted.losses[1:],
+                f"ckpt: resumed losses {resumed.losses} against the "
+                f"uninterrupted {uninterrupted.losses}")
+        require(trees_same_bits(resumed.params, uninterrupted.params)
+                and trees_same_bits(resumed.opt_state,
+                                    uninterrupted.opt_state),
+                "ckpt: the resumed steps' state differs from the "
+                "uninterrupted run's")
+        try:
+            restore_checkpoint(d, 1, params_like=lm_api.param_spec(
+                get_config(CKPT_ARCH)))
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        require("meta like" in raised,
+                "ckpt: a meta like without a sharding did not raise")
+        n_leaves = len(tree_leaves(state))
+        del one, resumed
+        rt = dtensor_round_trip(state, d, dev)
+    require(rt["plain_bitwise"] and rt["placed_bitwise"]
+            and rt["placements_equal"], f"ckpt: DTensor round trip {rt}")
+    require(not any(counts.values()), f"ckpt: kernel launches {counts}")
+    save_s, restore_s = saves.seconds, restores.seconds[0]
+    log(f"[ckpt] smollm-360m sync state at batch 32 seq 256 ({smi}): "
+        f"{n_leaves} leaves, {nbytes} B as npz ({nbytes / 2**30:.2f} GiB, "
+        f"bf16 params widened to float32); save {save_s[0]:.2f} s "
+        f"({nbytes / save_s[0] / 1e9:.2f} GB/s; the resumed run's final "
+        f"save {save_s[-1]:.2f} s); restore from meta likes onto the card "
+        f"{restore_s:.2f} s ({nbytes / restore_s / 1e9:.2f} GB/s), every "
+        f"leaf bitwise the saved state; the next {steps - 1} steps' losses, "
+        f"params and AdamW state bitwise the uninterrupted run's; a meta "
+        f"like without a sharding raises ValueError; launch counts {counts}")
+    log(f"[ckpt] DTensor round trip over a one-rank NCCL (1, 1) mesh "
+        f"(placements {rt['placements']}): save from DTensors "
+        f"{rt['save_s']:.2f} s, restore onto the plain card "
+        f"{rt['restore_plain_s']:.2f} s and back onto the placements "
+        f"{rt['restore_placed_s']:.2f} s, each bitwise; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, bytes=nbytes, save_s=save_s[0],
+                restore_s=restore_s, dtensor=rt)
 
 
 # ---------------------------------------------------------------------------
@@ -3378,24 +3619,26 @@ def main() -> int:
         f"({100 * drain_clock.seconds / wall:.2f}%, {drain_clock.calls} calls), "
         f"rest (netsim, PS apply, set-up) "
         f"{wall - ppo_clock.seconds - drain_clock.seconds:.4f} s")
-    # the same run again under the profiler, for the card's busy time; the
-    # idle share is that run's own (the profiler slows the host, so the
-    # share against the unprofiled wall, which mixes two runs, is shown
-    # only beside it)
+    # a shorter run under the profiler, for the card's busy time: the same
+    # configuration at TRAINER_PROFILED_UPDATES updates a worker (the
+    # profiler slows the host about threefold); the idle share is that
+    # run's own
     t0 = time.perf_counter()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        AsyncDRLTrainer(cfg, device=dev).run()
+        AsyncDRLTrainer(dataclasses.replace(
+            cfg, n_updates_per_worker=TRAINER_PROFILED_UPDATES),
+            device=dev).run()
         torch.cuda.synchronize()
     wall_prof = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy = sum(us for _, us in kernels.values()) / 1e6
     if busy:
-        log(f"[trainer] profiled run: device busy {busy:.4f} s in "
+        log(f"[trainer] profiled run at {TRAINER_PROFILED_UPDATES} update(s) "
+            f"a worker: device busy {busy:.4f} s in "
             f"{sum(n for n, _ in kernels.values())} device events over "
-            f"{wall_prof:.3f} s wall: idle share {100 * (1 - busy / wall_prof):.2f}% "
-            f"(the same busy time over the unprofiled run's {wall:.3f} s: "
-            f"{100 * (1 - busy / wall):.2f}%)")
+            f"{wall_prof:.3f} s wall: idle share "
+            f"{100 * (1 - busy / wall_prof):.2f}%")
     else:
         log("[trainer] device busy: not measured (the profiler recorded no "
             "device events)")
@@ -3475,21 +3718,24 @@ def main() -> int:
         f"{sec['result']:.4f} s); PS apply {sec['ps_apply']:.4f} s "
         f"({100 * sec['ps_apply'] / wall_h:.2f}%); rest (set-up, row "
         f"read-back) {wall_h - sec['netsim'] - replay_s - sec['ps_apply']:.4f} s")
+    # the same configuration over HYBRID_PROFILED_HORIZON under the
+    # profiler; the idle share is that run's own
     t0 = time.perf_counter()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        hybrid_ppo_run(dev)
+        run_hybrid_ppo(env="lander", device=dev, seed=0, **dict(
+            HYBRID_KW, horizon=HYBRID_PROFILED_HORIZON))
         torch.cuda.synchronize()
     wall_hp = time.perf_counter() - t0
     kernels_h = device_kernels(prof)
     busy_h = sum(us for _, us in kernels_h.values()) / 1e6
     comb_us = sum(us for n, (_, us) in kernels_h.items() if "olaf_combine" in n)
     if busy_h:
-        log(f"[hybrid] profiled run: device busy {busy_h:.4f} s in "
+        log(f"[hybrid] profiled run over a {HYBRID_PROFILED_HORIZON} s "
+            f"horizon: device busy {busy_h:.4f} s in "
             f"{sum(n for n, _ in kernels_h.values())} device events over "
             f"{wall_hp:.3f} s wall: idle share "
-            f"{100 * (1 - busy_h / wall_hp):.2f}% (over the unprofiled "
-            f"run's {wall_h:.3f} s: {100 * (1 - busy_h / wall_h):.2f}%); "
+            f"{100 * (1 - busy_h / wall_hp):.2f}%; "
             f"olaf_combine_kernel {comb_us / 1e3:.4f} ms in "
             f"{sum(c for n, (c, _) in kernels_h.items() if 'olaf_combine' in n)} "
             f"launches")
@@ -3591,7 +3837,10 @@ def main() -> int:
     train = train_phase(dev)
     max_err = max(max_err, train["max_abs_err"])
 
-    # ---- 4f'. activation checkpointing; the dry run ------------------------
+    # ---- 4f'. the elastic re-mesh checkpoint of [train]'s sync state -------
+    ckpt = ckpt_phase(dev, smi, train.pop("sync"))
+
+    # ---- 4f''. activation checkpointing; the dry run -----------------------
     remat = remat_phase(dev)
     dry = dryrun_phase(dev, smi)
 
@@ -3661,7 +3910,8 @@ def main() -> int:
                  recovery=recovery["counts"], **examples["counts"],
                  **sharded["counts"],
                  **{f"remat {p}": c for p, c in remat["counts"].items()},
-                 **{"dryrun sync": dry["counts"]})
+                 **{"dryrun sync": dry["counts"],
+                    "ckpt sync": ckpt["counts"]})
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -3790,7 +4040,12 @@ def main() -> int:
         k: dry[k] for k in ("cost", "predicted_cost", "step_ms", "step_ms_min",
                             "step_ms_max", "counted_gb_s", "peak",
                             "predicted")}
-        | {"cells": {c: r["cost"] for c, r in dry["cells"].items()}}))
+        | {"cells": {c: r["cost"] for c, r in dry["cells"].items()},
+           "probe_transcendentals": {
+               c: r["probe_transcendentals"]
+               for c, r in dry["cells"].items()}}))
+    log("[ckpt] summary " + json.dumps(
+        {k: ckpt[k] for k in ("bytes", "save_s", "restore_s", "dtensor")}))
     print(smi, flush=True)
     print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry,
                                   flash_entry, decode_entry]}), flush=True)

@@ -14,7 +14,10 @@ torch ``DeviceMesh``), which returns one tuple per tensor dim, each entry
 padded with ``None`` to the tensor's rank. :func:`to_placements` turns a
 spec into DTensor placements (``Shard(dim)`` or ``Replicate()`` per mesh
 axis) and :func:`to_named` places a tree by a spec tree, ``repro``'s
-``to_named`` (a ``NamedSharding`` per leaf). :func:`fake_device_mesh`
+``to_named`` (a ``NamedSharding`` per leaf); :func:`named_shardings` gives
+the tree of :class:`NamedSharding` records itself, which a checkpoint
+restore places by (``checkpoint.ckpt.restore_checkpoint(shardings=...)``).
+:func:`fake_device_mesh`
 stands one process in for every rank of a production mesh (PyTorch's
 ``fake`` process group, ``repro``'s 512 placeholder host devices):
 ``launch/dryrun.py`` runs each step there on meta DTensors, and
@@ -298,33 +301,80 @@ def to_placements(spec: Optional[Spec], axis_names: Sequence[str],
     return tuple(out)
 
 
+class NamedSharding:
+    """``jax.sharding.NamedSharding``'s counterpart: a torch ``DeviceMesh``
+    and a per-dim spec (a tuple of this module's entries; ``None`` or
+    ``()`` replicates). A shardings tree of these places what
+    ``checkpoint.ckpt.restore_checkpoint(shardings=..., opt_shardings=...)``
+    restores. A plain class, neither a tuple nor a dataclass, so the tree
+    walks of ``models.module`` take it as a leaf."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh, spec: Optional[Spec]):
+        self.mesh = mesh
+        self.spec = tuple(spec or ())
+
+    def placements(self) -> tuple:
+        """The spec as DTensor placements over :attr:`mesh`
+        (:func:`to_placements`, an axis of one rank replicated)."""
+        return to_placements(self.spec, tuple(self.mesh.mesh_dim_names),
+                             tuple(self.mesh.shape))
+
+    def place(self, x: torch.Tensor, src_data_rank: Optional[int] = 0):
+        """``x`` distributed over :attr:`mesh`: from ``src_data_rank``'s
+        copy (a collective, every rank calls it), or, with ``None``, each
+        rank's shard cut from its own ``x`` (no communication: every rank
+        holds the same values)."""
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(x, self.mesh, self.placements(),
+                                 src_data_rank=src_data_rank)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and other.mesh == self.mesh
+                and other.spec == self.spec)
+
+    def __hash__(self) -> int:
+        return hash((self.mesh, self.spec))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def _map_specs(fn, tree, spec_tree):
+    """``fn(leaf, spec)`` over ``tree`` (a dict, tuple or ``NamedTuple`` of
+    tensors) and the spec tree of the same structure; ``None`` stays."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, spec_tree[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_specs(fn, v, s)
+                            for v, s in zip(tree, spec_tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_specs(fn, v, s)
+                          for v, s in zip(tree, spec_tree))
+    return fn(tree, spec_tree)
+
+
+def named_shardings(tree, spec_tree, device_mesh):
+    """``repro``'s ``to_named`` of a spec tree: a :class:`NamedSharding`
+    over ``device_mesh`` per leaf of ``tree`` (which gives the structure:
+    a spec is itself a tuple)."""
+    return _map_specs(lambda _, spec: NamedSharding(device_mesh, spec),
+                      tree, spec_tree)
+
+
 def to_named(tree, spec_tree, device_mesh):
     """``repro``'s ``to_named``, applied: each leaf of ``tree`` (a dict,
     tuple or ``NamedTuple`` of tensors, meta or not) distributed over the
     torch ``device_mesh`` by its spec in ``spec_tree`` (a tree of the same
     structure). Returns the same tree of DTensors; a ``None`` leaf stays
     ``None``."""
-    from torch.distributed.tensor import distribute_tensor
-
-    names = tuple(device_mesh.mesh_dim_names)
-    sizes = tuple(device_mesh.shape)
-
-    def place(x, spec):
-        if x is None:
-            return None
-        return distribute_tensor(x, device_mesh,
-                                 to_placements(spec, names, sizes))
-
-    def walk(t, s):
-        if isinstance(t, dict):
-            return {k: walk(v, s[k]) for k, v in t.items()}
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*(walk(v, sv) for v, sv in zip(t, s)))
-        if isinstance(t, (list, tuple)):
-            return type(t)(walk(v, sv) for v, sv in zip(t, s))
-        return place(t, s)
-
-    return walk(tree, spec_tree)
+    return _map_specs(
+        lambda x, spec: NamedSharding(device_mesh, spec).place(x),
+        tree, spec_tree)
 
 
 @contextlib.contextmanager

@@ -451,11 +451,21 @@ def _pow(args, kwargs, n):
         isinstance(e, float) and not e.is_integer()) else 0
 
 
+def _per_row(args, kwargs, n):
+    """One exp per element and one log per row (a ``log_softmax``)."""
+    x, dim = args[0], args[1]
+    return n + (n // max(x.size(dim), 1) if x.dim() else n)
+
+
 #: the transcendentals of the aten ops whose XLA counterparts XLA counts as
 #: transcendental (exp, log, tanh, logistic, rsqrt, sqrt, erf, sin/cos,
 #: power): ``(args, kwargs, result elements) -> count``; one per result
-#: element unless a comment says otherwise. Every op of a backward that is
-#: not fused into one of these is counted as the op it is.
+#: element unless a comment says otherwise. A composite counts what its
+#: decomposition (``torch._decomp``) computes, so an op counts the same
+#: whether it is dispatched whole or as its parts
+#: (``test_transcendentals_count_the_same_whole_or_decomposed``). Every op
+#: of a backward that is not fused into one of these is counted as the op
+#: it is.
 _TRANSCENDENTALS = {
     **{name: _each(1) for name in (
         "exp", "exp_", "exp2", "expm1", "log", "log_", "log2", "log10",
@@ -471,7 +481,7 @@ _TRANSCENDENTALS = {
     "softplus_backward": _each(1),  # exp(βx)
     "logaddexp": _each(2),  # exp and log1p of the difference
     "_softmax": _each(1),  # one exp per element
-    "_log_softmax": _each(1),  # one exp per element (a log per row left out)
+    "_log_softmax": _per_row,
     "_log_softmax_backward_data": _each(1),  # exp of the saved output
     # an exp per element of the input, a log per element of the result
     "logsumexp": lambda args, kwargs, n: args[0].numel() + n,

@@ -506,8 +506,15 @@ def run_sync(cfg, args, device=None) -> SyncResult:
     opt_state = init_opt_state(params, opt)
     start = 0
     if args.ckpt and latest_step(args.ckpt) is not None:
+        # meta likes placed on the run's device, as ``repro`` restores onto
+        # ``jax.eval_shape`` trees
+        p_like = api.param_spec(cfg)
+        o_like = init_opt_state(p_like, opt)
         start, params, opt_state = restore_checkpoint(
-            args.ckpt, params_like=params, opt_like=opt_state)
+            args.ckpt, params_like=p_like, opt_like=o_like,
+            shardings=tree_map(lambda _: dev, p_like),
+            opt_shardings=tree_unflatten(
+                o_like, [dev] * len(tree_leaves(o_like))))
         print(f"resumed from step {start}")
     losses: List[float] = []
     t0 = time.time()

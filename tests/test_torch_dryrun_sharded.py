@@ -11,7 +11,8 @@ on DTensors, ``sharding.to_named`` and ``fake_device_mesh``):
   * the probes' extrapolation to 4 periods equals the direct 4-period run:
     collectives and ``cost`` exactly, ``temp_bytes`` within 1 %;
   * ``dryrun.StepCost``'s counting rules on hand-sized ops, with exact
-    bytes; the sharded pass's ``cost["flops"]`` equal to
+    bytes, and each composite's transcendentals equal to its
+    decomposition's; the sharded pass's ``cost["flops"]`` equal to
     ``roofline.count_flops`` of the same step on a (1, 1) mesh, and a
     quarter of it per device on a (4, 1) mesh;
   * ``--hlo-dump`` writes the 1-period probe's op trace, whose bytes
@@ -308,6 +309,56 @@ def test_step_cost_counting_rules(case):
     assert counter.cost() == want
     assert sum(row[3] for row in trace) == want["bytes_accessed"]
     assert counter.record()["total_bytes"] == 0
+
+
+def _whole_or_decomposed_cases():
+    """``(aten op, args, kwargs, transcendentals)`` at (4, 8) operands for
+    each op of ``dryrun._TRANSCENDENTALS`` that ``torch._decomp``
+    decomposes: per element, and a log per row (4) where the op takes
+    one."""
+    aten = torch.ops.aten
+    gen = torch.Generator().manual_seed(0)
+    x, y, g = (torch.randn((4, 8), generator=gen) for _ in range(3))
+    p = torch.rand((4, 8), generator=gen) + 0.1
+    rows = [-1]
+    return {
+        "softmax": (aten._softmax.default, (x, -1, False), {}, 32),
+        "log_softmax": (aten._log_softmax.default, (x, -1, False), {}, 36),
+        "log_softmax_backward": (
+            aten._log_softmax_backward_data.default,
+            (g, torch.log_softmax(x, -1), -1, torch.float32), {}, 32),
+        "logsumexp": (aten.logsumexp.default, (x, rows), {}, 36),
+        "logaddexp": (aten.logaddexp.default, (x, y), {}, 64),
+        "softplus": (aten.softplus.default, (x, 1.0, 20.0), {}, 64),
+        "softplus_backward": (aten.softplus_backward.default,
+                              (g, x, 1.0, 20.0), {}, 32),
+        "gelu": (aten.gelu.default, (x,), {}, 32),
+        "gelu_tanh": (aten.gelu.default, (x,), {"approximate": "tanh"}, 32),
+        "gelu_backward": (aten.gelu_backward.default, (g, x), {}, 64),
+        "gelu_backward_tanh": (aten.gelu_backward.default, (g, x),
+                               {"approximate": "tanh"}, 32),
+        "silu": (aten.silu.default, (x,), {}, 32),
+        "silu_backward": (aten.silu_backward.default, (g, x), {}, 32),
+        "sigmoid": (aten.sigmoid.default, (x,), {}, 32),
+        "rsqrt": (aten.rsqrt.default, (p,), {}, 32),
+    }
+
+
+@pytest.mark.parametrize("case", list(_whole_or_decomposed_cases()))
+def test_transcendentals_count_the_same_whole_or_decomposed(case):
+    """A composite op counts the transcendentals its decomposition
+    (``torch._decomp``'s, what a torch version or DTensor may dispatch in
+    its place) computes: whole or as its parts, one count, so each computed
+    transcendental counts once whatever the dispatch path."""
+    from torch._decomp import decomposition_table
+
+    op, args, kwargs, want = _whole_or_decomposed_cases()[case]
+    counts = []
+    for fn in (op, decomposition_table[op]):
+        with dryrun.StepCost() as counter:
+            fn(*args, **kwargs)
+        counts.append(counter.cost()["transcendentals"])
+    assert counts == [want, want], (case, counts)
 
 
 KINDS = {"train": ShapeCfg("t", 16, 8, "train"),
