@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint.ckpt import (latest_step, restore_checkpoint,
                                          save_checkpoint)
 from repro_torch.configs import get_config
@@ -98,16 +99,19 @@ def loss_and_grads(params, batch, cfg
     of ``repro``'s: ``(loss, grads)`` with ``grads`` in ``tree_leaves``
     order (sorted keys), each in its param's dtype."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-    loss = api.loss_fn(tree_unflatten(params, leaves), batch, cfg)
-    grads = torch.autograd.grad(loss, leaves)
+    with tracing.span("worker.forward"):
+        loss = api.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+    with tracing.span("worker.backward"):
+        grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads)
 
 
 def worker_grad(params, batch, cfg, out: torch.Tensor) -> torch.Tensor:
     """One worker's update: the loss, with its flat float32 gradient written
     into ``out`` (D,) (a row of the burst buffer) in ``repro``'s order."""
-    loss, grads = loss_and_grads(params, batch, cfg)
-    flatten_like(grads, out)
+    with tracing.span("worker.grad"):
+        loss, grads = loss_and_grads(params, batch, cfg)
+        flatten_like(grads, out)
     return loss
 
 
@@ -165,6 +169,11 @@ def ps_step(state: PSState, burst: Dict[str, torch.Tensor], *, cfg: PSConfig
          number of clusters active in the window;
       11. the multicast ACK to every worker of a drained cluster.
 
+    Under :mod:`repro_torch.tracing` the body is the span ``ps.step``, tiled
+    by ``ps.gate`` (1), ``ps.screen`` (2), ``ps.olaf_step`` (3-4),
+    ``ps.combine`` (5, with ``ps.trimmed`` around the trimmed combine),
+    ``ps.apply`` (6-7) and ``ps.feedback`` (8-11 and the stats).
+
     ``burst`` holds ``now`` (0-dim float32), ``clusters``, ``workers``
     (U,) int32, ``times``, ``rewards``, ``losses`` (U,) float32,
     ``payloads`` (U, D) float32 in ``tree_leaves`` order, and optionally
@@ -173,57 +182,70 @@ def ps_step(state: PSState, burst: Dict[str, torch.Tensor], *, cfg: PSConfig
     state and the step's stats as 0-dim tensors; nothing is read back to
     the host.
     """
-    now = burst["now"]
-    clusters, workers, payloads = (burst["clusters"], burst["workers"],
-                                   burst["payloads"])
-    send, _ = txctl_gate(state.tx, now, cfg.tx.delta_threshold, cfg.tx.v,
-                         worker_ids=workers, generator=state.gen,
-                         uniforms=burst.get("uniforms"))
-    med = state.med
-    zero = torch.zeros((), dtype=torch.int32, device=now.device)
-    screen, n_screen = None, zero
-    if cfg.screen:
-        screen, med = screen_mask(payloads, med, factor=cfg.screen_factor,
-                                  mask=send)
-        n_screen = (send & screen).sum(dtype=torch.int32)
-    queue, out = ops.olaf_step(state.queue, clusters, workers, burst["times"],
-                               burst["rewards"], payloads, math.inf, send,
-                               None, burst.get("active"), screen,
-                               k=cfg.drain_k, impl=cfg.step_impl)
-    valid, n_stale = out["valid"], zero
-    if cfg.stale_bound is not None:
-        fresh = staleness_mask(now, out["gen_time"], cfg.stale_bound)
-        n_stale = (valid & ~fresh).sum(dtype=torch.int32)
-        valid = valid & fresh
-    # each drained row is the mean of agg_count raw gradients: the applied
-    # gradient is their exact weighted mean
-    wts = valid * out["agg_count"].to(torch.float32)
-    g_flat = (wts @ out["payload"]) / torch.clamp(wts.sum(), min=1.0)
-    if cfg.screen:
-        frac = n_screen.to(torch.float32) / torch.clamp(
-            send.sum().to(torch.float32), min=1.0)
-        g_flat = torch.where(frac > cfg.robust_threshold,
-                             trimmed_combine_torch(out["payload"], wts),
-                             g_flat)
-    params, opt_state = apply_updates(
-        state.params, unflatten_like(g_flat, state.params), state.opt_state,
-        cfg.opt)
-    aom = aom_update_block(state.aom, now.expand(valid.shape[0]),
-                           out["gen_time"], valid)
-    last_seen = state.last_seen.scatter_reduce(
-        0, clusters.long(), torch.where(send, burst["times"], -math.inf),
-        "amax")
-    n_active = ((now - last_seen) <= ACTIVE_WINDOW).sum().to(torch.float32)
-    acked = ((cfg.cluster_of[:, None] == out["cluster"][None, :])
-             & valid[None, :]).any(dim=1)
-    tx = txctl_ack(state.tx, acked, now, n_active, cfg.q_max)
-    stats = dict(loss=burst["losses"].mean(),
-                 applied=valid.sum(dtype=torch.int32), combined=wts.sum(),
-                 # a copy: the kernel updates n_agg in place next step
-                 agg_total=queue.n_agg.clone(),
-                 deferred=(~send).sum(dtype=torch.int32), stale=n_stale,
-                 screened=n_screen,
-                 occupancy=(queue.cluster >= 0).sum(dtype=torch.int32))
+    with tracing.span("ps.step"):
+        now = burst["now"]
+        clusters, workers, payloads = (burst["clusters"], burst["workers"],
+                                       burst["payloads"])
+        with tracing.span("ps.gate"):
+            send, _ = txctl_gate(state.tx, now, cfg.tx.delta_threshold,
+                                 cfg.tx.v, worker_ids=workers,
+                                 generator=state.gen,
+                                 uniforms=burst.get("uniforms"))
+        with tracing.span("ps.screen"):
+            med = state.med
+            zero = torch.zeros((), dtype=torch.int32, device=now.device)
+            screen, n_screen = None, zero
+            if cfg.screen:
+                screen, med = screen_mask(payloads, med,
+                                          factor=cfg.screen_factor, mask=send)
+                n_screen = (send & screen).sum(dtype=torch.int32)
+        with tracing.span("ps.olaf_step"):
+            queue, out = ops.olaf_step(state.queue, clusters, workers,
+                                       burst["times"], burst["rewards"],
+                                       payloads, math.inf, send, None,
+                                       burst.get("active"), screen,
+                                       k=cfg.drain_k, impl=cfg.step_impl)
+            valid, n_stale = out["valid"], zero
+            if cfg.stale_bound is not None:
+                fresh = staleness_mask(now, out["gen_time"], cfg.stale_bound)
+                n_stale = (valid & ~fresh).sum(dtype=torch.int32)
+                valid = valid & fresh
+        with tracing.span("ps.combine"):
+            # each drained row is the mean of agg_count raw gradients: the
+            # applied gradient is their exact weighted mean
+            wts = valid * out["agg_count"].to(torch.float32)
+            g_flat = (wts @ out["payload"]) / torch.clamp(wts.sum(), min=1.0)
+            if cfg.screen:
+                frac = n_screen.to(torch.float32) / torch.clamp(
+                    send.sum().to(torch.float32), min=1.0)
+                with tracing.span("ps.trimmed"):
+                    trimmed = trimmed_combine_torch(out["payload"], wts)
+                g_flat = torch.where(frac > cfg.robust_threshold, trimmed,
+                                     g_flat)
+                del trimmed  # D floats, not to be held through AdamW
+        with tracing.span("ps.apply"):
+            params, opt_state = apply_updates(
+                state.params, unflatten_like(g_flat, state.params),
+                state.opt_state, cfg.opt)
+        with tracing.span("ps.feedback"):
+            aom = aom_update_block(state.aom, now.expand(valid.shape[0]),
+                                   out["gen_time"], valid)
+            last_seen = state.last_seen.scatter_reduce(
+                0, clusters.long(),
+                torch.where(send, burst["times"], -math.inf), "amax")
+            n_active = ((now - last_seen) <= ACTIVE_WINDOW).sum().to(
+                torch.float32)
+            acked = ((cfg.cluster_of[:, None] == out["cluster"][None, :])
+                     & valid[None, :]).any(dim=1)
+            tx = txctl_ack(state.tx, acked, now, n_active, cfg.q_max)
+            stats = dict(loss=burst["losses"].mean(),
+                         applied=valid.sum(dtype=torch.int32),
+                         combined=wts.sum(),
+                         # a copy: the kernel updates n_agg in place next step
+                         agg_total=queue.n_agg.clone(),
+                         deferred=(~send).sum(dtype=torch.int32),
+                         stale=n_stale, screened=n_screen,
+                         occupancy=(queue.cluster >= 0).sum(dtype=torch.int32))
     new = PSState(queue=queue, params=params, opt_state=opt_state, tx=tx,
                   aom=aom, last_seen=last_seen, med=med, gen=state.gen)
     return new, stats
@@ -420,20 +442,22 @@ class OlafAsyncTrainer:
     def step(self) -> None:
         """One PS iteration: churn events, a burst, :func:`ps_step`, the
         periodic stats read-back and checkpoint."""
-        it, args = self.it, self.args
-        self._churn_events(it)
-        burst = self.next_burst()
-        self.state, stats = ps_step(self.state, burst, cfg=self.ps_cfg)
-        self.pending.append(stats)
-        if len(self.pending) >= self.flush_every:
-            self.flush()
-            if args.log_every:
-                step, loss_v, combined = self.log_rows[-1]
-                print(f"applied {step}: loss {loss_v:.4f} "
-                      f"(combined {combined} updates)")
-        self.it = it + 1
-        if args.ckpt and args.ckpt_every and self.it % args.ckpt_every == 0:
-            self.save(self.it)
+        with tracing.span("trainer.step"):
+            it, args = self.it, self.args
+            self._churn_events(it)
+            burst = self.next_burst()
+            self.state, stats = ps_step(self.state, burst, cfg=self.ps_cfg)
+            self.pending.append(stats)
+            if len(self.pending) >= self.flush_every:
+                self.flush()
+                if args.log_every:
+                    step, loss_v, combined = self.log_rows[-1]
+                    print(f"applied {step}: loss {loss_v:.4f} "
+                          f"(combined {combined} updates)")
+            self.it = it + 1
+            if args.ckpt and args.ckpt_every \
+                    and self.it % args.ckpt_every == 0:
+                self.save(self.it)
 
     def flush(self) -> None:
         """One host read-back for the whole batch of buffered stats."""

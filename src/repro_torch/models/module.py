@@ -32,6 +32,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import tracing
+
 Params = Dict[str, Any]
 
 
@@ -178,7 +180,9 @@ def run_periods(body: Callable, carry, stacked_params: Params, *, cfg=None):
     the period (:func:`fsdp_gather`; under remat the gather is recomputed
     in the backward, not saved), unless the carry is one token a row (a
     decode step reads its weights where they lie and moves activations,
-    as ``repro``'s decode constraints arrange)."""
+    as ``repro``'s decode constraints arrange). Each period runs under a
+    ``model.period`` span inside the remat wrapper, so a recompute opens
+    it again."""
     leaves = list(tree_paths(stacked_params).values())
     n = leaves[0].shape[0] if leaves else 0
     if leaves and is_dtensor(leaves[0]):
@@ -190,7 +194,12 @@ def run_periods(body: Callable, carry, stacked_params: Params, *, cfg=None):
             if isinstance(p, tuple):
                 return inner(c, (tree_map(fsdp_gather, p[0]),) + p[1:])
             return inner(c, tree_map(fsdp_gather, p))
-    fn = remat_wrap(body, cfg)
+
+    def period(c, p):
+        with tracing.span("model.period"):
+            return body(c, p)
+
+    fn = remat_wrap(period, cfg)
     ys = []
     for i in range(n):
         carry, y = fn(carry, tree_map(lambda x: x[i], stacked_params))

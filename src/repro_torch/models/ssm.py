@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models.layers import (causal_conv, constrain, is_dtensor,
                                       model_axis, residual_dims, shard_local,
                                       softplus)
@@ -123,8 +124,9 @@ def _ssd(p, x, cfg):
     Bh = Bp.reshape(B, NC, Q, N).to(torch.float32)  # G = 1
     Ch = Cp.reshape(B, NC, Q, N).to(torch.float32)
     dth = dt.reshape(B, NC, Q, H)
-    Y, h = shard_local(_ssd_core, *_core_placements(xh), xh, Bh, Ch, dth, A,
-                       p["D"])
+    with tracing.span("model.ssd"):
+        Y, h = shard_local(_ssd_core, *_core_placements(xh), xh, Bh, Ch, dth,
+                           A, p["D"])
     # heads whole-channelled before (H, P) flattens into d_inner: the heads
     # over the model axis where they divide it, else replicated
     Y = constrain(Y, cfg, ("batch", None, None, "tp", None))

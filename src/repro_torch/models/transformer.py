@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import layers as L
@@ -191,9 +192,10 @@ def _attn_block(p, x, cfg: ArchConfig, kind: str, positions):
     h = L.apply_norm(cfg.norm, p["ln1"], x)
     q, k, v = L.qkv(p["attn"], h, cfg)
     q, k = _rope(cfg, q, positions), _rope(cfg, k, positions)
-    ctx = L.attention_any(q, L.expand_kv(k, cfg), L.expand_kv(v, cfg),
-                          causal=True, window=_attn_window(cfg, kind),
-                          impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    with tracing.span("model.attention"):
+        ctx = L.attention_any(q, L.expand_kv(k, cfg), L.expand_kv(v, cfg),
+                              causal=True, window=_attn_window(cfg, kind),
+                              impl=cfg.attn_impl, chunk=cfg.attn_chunk)
     return x + L.out_proj(p["attn"], ctx, cfg), k, v
 
 

@@ -601,6 +601,55 @@ def test_ps_step_makes_no_host_sync(cuda_device):
                for v in stats.values())
 
 
+@pytest.mark.cuda
+def test_spans_on_the_card(cuda_device):
+    """``repro_torch.tracing`` on the card: a trainer step under remat
+    ``full`` gives every span a positive device time, and each gradient
+    2 × n_layers ``model.period`` spans, half under ``worker.backward``
+    (autograd's device thread runs the recompute); a span inside CUDA
+    graph capture records no event, and the capture and its replay
+    succeed."""
+    from repro_torch import tracing
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(TRAIN_ARGV + ["--device", "cuda"])
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), remat=True,
+                              remat_policy="full")
+    tr = train.OlafAsyncTrainer(cfg, args)
+    tr.step()  # builds and loads the kernel outside the traced step
+    x = torch.arange(1024, dtype=torch.float32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x * 2  # warm up before capture, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    tracing.enable()
+    try:
+        tr.step()
+        recs = tracing.take()
+        with torch.cuda.graph(graph):
+            with tracing.span("model.period"):
+                y = x * 2
+        graph.replay()
+        captured = tracing.take()
+    finally:
+        tracing.disable()
+        tracing.take()
+    assert all(r.device_ms is not None and r.device_ms > 0 for r in recs), \
+        [(r.name, r.device_ms) for r in recs if not r.device_ms]
+    by_id = {r.id: r for r in recs}
+    grads = [r for r in recs if r.name == "worker.grad"]
+    assert len(grads) == tr.burst_size
+    periods = [r for r in recs if r.name == "model.period"]
+    assert len(periods) == 2 * cfg.n_layers * len(grads)
+    assert sum(by_id[r.parent].name == "worker.backward"
+               for r in periods) == cfg.n_layers * len(grads)
+    assert [(r.name, r.device_ms) for r in captured] \
+        == [("model.period", None)]
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2)
+
+
 def _dyadic_fattree_cfg(route="static", faults=None):
     """``tests/test_vecsim.py``'s dyadic fat-tree k=2, from the port's
     topology (every event time exact in float32 and float64)."""
