@@ -20,7 +20,9 @@ launch), and LM training of smollm-360m at full width (``launch.train
 --mode olaf-async``: every PS step is one ``olaf_step`` launch at D =
 361,821,120, the kernel held to its plain version at that shape; then
 ``--mode sync``; and a reduced run on the card held to the same run on the
-CPU), and the other LM families (``[families]``: mamba2, recurrentgemma,
+CPU), the PS step's robust combine (``[robust]``: the ``olaf_robust_combine``
+kernel against its plain composition, both branches, timed at the
+engine cell's K = 4 × D = 361,821,120), and the other LM families (``[families]``: mamba2, recurrentgemma,
 grok-1, arctic, internvl2 and whisper served at their published widths,
 depth cut only where one card forces it, each one's first period held in
 float32 to the plain route and its reduced config to the CPU; mamba2
@@ -103,6 +105,8 @@ from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
                                               olaf_combine_plain)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
                                               olaf_enqueue_plain)
+from repro_torch.kernels.olaf_robust import (  # noqa: E402
+    olaf_robust_combine_cuda, olaf_robust_combine_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -433,6 +437,7 @@ def injected_payload_run(device):
 # ---------------------------------------------------------------------------
 COUNTED = {"olaf_step": olaf_step_cuda, "olaf_combine": olaf_combine_cuda,
            "olaf_enqueue": olaf_enqueue_cuda,
+           "olaf_robust_combine": olaf_robust_combine_cuda,
            "flash_attention": flash_attention_cuda,
            "decode_attention": decode_attention_cuda}
 
@@ -2071,9 +2076,10 @@ def train_phase(dev) -> dict:
     losses = [l for _, l, _ in tr.log_rows]
     params = tree_leaves(tr.state.params)
     require(tr.dim == TRAIN_D, f"train: D = {tr.dim}, not {TRAIN_D}")
-    require(counts["olaf_step"] == steps == len(ps_ms),
-            f"train: {counts['olaf_step']} olaf_step launches in {steps} PS "
-            f"steps, one per step expected")
+    require(counts["olaf_step"] == counts["olaf_robust_combine"] == steps
+            == len(ps_ms), f"train: {counts['olaf_step']} olaf_step and "
+            f"{counts['olaf_robust_combine']} olaf_robust_combine launches in "
+            f"{steps} PS steps, one each per step expected")
     require(len(losses) == steps and all(math.isfinite(l) for l in losses),
             f"train: losses {losses}")
     require(sum(c for _, _, c in tr.log_rows) > 0, "train: nothing applied")
@@ -2088,7 +2094,9 @@ def train_phase(dev) -> dict:
         f"{qbytes} B, workers 4 batch 32 seq 256 burst 2 drain_k 4 screen "
         f"on, remat {tr.cfg.remat_policy if tr.cfg.remat else 'off'}; "
         f"{steps} steps in {tr.wall:.3f} s = {steps / tr.wall:.3f} "
-        f"steps/s; olaf_step launches {counts['olaf_step']} (counted from 0); "
+        f"steps/s; olaf_step launches {counts['olaf_step']}, "
+        f"olaf_robust_combine launches {counts['olaf_robust_combine']} "
+        f"(counted from 0); "
         f"peak memory {peak} B ({peak / 2**30:.2f} GiB; {held} B of it "
         f"held before the run, so the run's own {(peak - held) / 2**30:.2f} "
         f"GiB); loss first "
@@ -2206,6 +2214,125 @@ def train_phase(dev) -> dict:
                 ps_step_bound_ms=ps_bound, step_s=wall_1,
                 idle_share=idle, idle_share_profiled=idle_p,
                 peak_bytes=peak - held, sync=res)
+
+
+# ---------------------------------------------------------------------------
+# the PS step's robust combine: weighted mean, trimmed fallback, selection
+# ---------------------------------------------------------------------------
+ROBUST_K = 4  # the engine cell's drain-k
+ROBUST_THRESHOLD = 0.25  # PSConfig.robust_threshold's default
+ROBUST_TOL = 1e-6  # rtol and atol: the rows summed in another order than cuBLAS's
+
+
+def robust_counts(dev, selected: bool):
+    """(n_screen, n_send) on the card: 2 of 7 sent rows screened selects
+    the trimmed combine at the threshold 0.25, 1 of 7 the mean."""
+    return (torch.tensor(2 if selected else 1, dtype=torch.int32, device=dev),
+            torch.tensor(7, dtype=torch.int32, device=dev))
+
+
+def robust_rows(gen, dev, K, D, pad=0):
+    """K rows of D normal floats in a (K, D + pad) block, row 1 scaled by
+    10^3 (as the engine cell's faulty rows are) and a few non-finite
+    entries; with ``pad`` the rows are the view starting one float in."""
+    base = torch.randn((K, D + pad), generator=gen, device=dev)
+    base[1].mul_(1e3)
+    for value, row, at in ((math.nan, 0, 7), (math.inf, 2, 11),
+                           (-math.inf, 3, 13)):
+        base[row, at::max(D // 5, 1)] = value
+    return base[:, 1:1 + D] if pad else base
+
+
+def check_robust(rows, w, what: str) -> float:
+    """The kernel against the plain composition for both branches: NaN and
+    ±inf at the same places, the rest within ROBUST_TOL. Returns the
+    largest difference."""
+    err = 0.0
+    for selected in (False, True):
+        counts = robust_counts(rows.device, selected)
+        got = olaf_robust_combine_cuda(rows, w, *counts,
+                                       threshold=ROBUST_THRESHOLD)
+        want = olaf_robust_combine_plain(rows, w, *counts,
+                                         threshold=ROBUST_THRESHOLD)
+        torch.cuda.synchronize()
+        branch = "trimmed" if selected else "mean"
+        for pick in (torch.isnan, torch.isposinf, torch.isneginf):
+            require(torch.equal(pick(got), pick(want)),
+                    f"robust {what} {branch}: {pick.__name__} differ")
+        fin = torch.isfinite(want)
+        require(torch.allclose(got[fin], want[fin], rtol=ROBUST_TOL,
+                               atol=ROBUST_TOL),
+                f"robust {what} {branch}: differs from the plain version")
+        if bool(fin.any()):
+            err = max(err, float((got[fin] - want[fin]).abs().max()))
+        del got, want, fin
+    log(f"[robust] {what}: K={rows.shape[0]} D={rows.shape[1]} row stride "
+        f"{rows.stride(0)}, both branches match the plain composition (max "
+        f"|err| {err:.3g})")
+    return err
+
+
+def robust_phase(dev) -> dict:
+    """``ops.olaf_robust_combine``'s kernel against its plain composition
+    at D = 2**20 + 3 (contiguous, and a column view one float past a
+    16-byte boundary) and at the engine cell's shape (K = 4, D = TRAIN_D,
+    agg counts 1, 2, 1, 3): both branches checked and timed, the plain
+    composition timed (it computes both), the screen-off path's cuBLAS
+    mean timed at the same shape, the bound by bytes (K rows read, one
+    written), and device kernels per call."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    w = torch.tensor([1.0, 2.0, 1.0, 3.0], device=dev)
+    small = robust_rows(gen, dev, ROBUST_K, 2**20 + 3)
+    err = check_robust(small, w, "D=2^20+3")
+    err = max(err, check_robust(robust_rows(gen, dev, ROBUST_K, 2**20 + 3,
+                                            pad=5), w, "D=2^20+3 column view"))
+    per_call = {sel: launches_per_call(
+        lambda a, c=robust_counts(dev, sel): ops.olaf_robust_combine(
+            *a, *c, threshold=ROBUST_THRESHOLD),
+        lambda: (small, w), ("olaf_robust",)) for sel in (False, True)}
+    for sel, (mine, other) in per_call.items():
+        log(f"[launches] olaf_robust_combine ({'trimmed' if sel else 'mean'}"
+            f"): {mine:g} kernel launch(es) and {other:g} other device "
+            f"operation(s) per call (profiler, 5 calls)")
+        require((mine, other) == (1, 0), "olaf_robust_combine: not one "
+                "kernel and nothing else per call")
+    del small
+    torch.cuda.empty_cache()
+    K, D = ROBUST_K, TRAIN_D
+    rows = robust_rows(gen, dev, K, D)
+    err = max(err, check_robust(rows, w, "the engine's shape"))
+    torch.cuda.empty_cache()
+    times = {}
+    for sel in (False, True):
+        counts = robust_counts(dev, sel)
+        times[sel] = [time_ms(lambda _: olaf_robust_combine_cuda(
+            rows, w, *counts, threshold=ROBUST_THRESHOLD), lambda: None, 10)
+            for _ in range(2)]
+    counts = robust_counts(dev, True)
+    plain = time_ms(lambda _: olaf_robust_combine_plain(
+        rows, w, *counts, threshold=ROBUST_THRESHOLD), lambda: None, 3)
+    # the screen-off path's step 5 (both train cells) at the same shape
+    cublas = time_ms(lambda _: (w @ rows) / torch.clamp(w.sum(), min=1.0),
+                     lambda: None, 10)
+    nbytes = 4 * (K + 1) * D
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = {("trimmed" if sel else "mean"): min(t) for sel, t in times.items()}
+    for branch, t in ms.items():
+        log(f"[time] olaf_robust_combine K={K} D={D} {branch}: kernel "
+            f"{t:.4f} ms (runs {', '.join(f'{x:.4f}' for x in times[branch == 'trimmed'])}) "
+            f"bound {bound:.4f} ms (bytes, {nbytes} B) = "
+            f"{100 * bound / t:.2f}% of the bound; the plain composition "
+            f"(both branches and the selection) {plain:.4f} ms")
+    log(f"[time] the screen-off weighted mean (cuBLAS product, clamp and "
+        f"division) K={K} D={D}: {cublas:.4f} ms = "
+        f"{100 * bound / cublas:.2f}% of the same bound; the kernel's mean "
+        f"branch {ms['mean']:.4f} ms")
+    del rows
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, cublas_mean_ms=cublas,
+                bound_ms=bound, bytes=nbytes,
+                max_abs_err=err, shape=f"K={K} D={D}",
+                cuda_launches_per_call=per_call[False][0])
 
 
 # ---------------------------------------------------------------------------
@@ -3840,6 +3967,10 @@ def main() -> int:
     # ---- 4f'. the elastic re-mesh checkpoint of [train]'s sync state -------
     ckpt = ckpt_phase(dev, smi, train.pop("sync"))
 
+    # ---- 4f'''. the PS step's robust combine at the engine cell's shape --
+    robust = robust_phase(dev)
+    max_err = max(max_err, robust["max_abs_err"])
+
     # ---- 4f''. activation checkpointing; the dry run -----------------------
     remat = remat_phase(dev)
     dry = dryrun_phase(dev, smi)
@@ -4003,6 +4134,21 @@ def main() -> int:
                                  "kernel_bytes")}),
         launches_by_path=by_path("olaf_enqueue"))
 
+    robust_entry = dict(
+        name="olaf_robust_combine", route="cuda",
+        source="src/repro_torch/kernels/csrc/olaf_robust.cu",
+        replaces="none (repro's ps_step leaves the weighted mean, "
+                 "jax_trimmed_combine and their jnp.where to XLA)",
+        launches=train["counts"]["olaf_robust_combine"],
+        max_abs_err=robust["max_abs_err"], ms=robust["ms"]["mean"],
+        ms_trimmed=robust["ms"]["trimmed"], plain_ms=robust["plain_ms"],
+        bound_ms=robust["bound_ms"], bound_by="bytes", library_ms=None,
+        library_note="none: no single PyTorch call computes the trimmed "
+                     "combine", bytes=robust["bytes"],
+        cuda_launches_per_call=robust["cuda_launches_per_call"],
+        shape=f"{robust['shape']} (the engine cell's drained block)",
+        launches_by_path=by_path("olaf_robust_combine"))
+
     def attn_entry(kind, source, replaces, head_shape):
         name = f"{kind}_attention"
         head = attn_times[(kind, "a", torch.bfloat16)]
@@ -4048,7 +4194,8 @@ def main() -> int:
         {k: ckpt[k] for k in ("bytes", "save_s", "restore_s", "dtensor")}))
     print(smi, flush=True)
     print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry,
-                                  flash_entry, decode_entry]}), flush=True)
+                                  robust_entry, flash_entry, decode_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -146,7 +146,9 @@ def _merge_uids(a: Optional[frozenset], b: Optional[frozenset]) -> Optional[froz
 # [trim, 1-trim] weighted-sample quantile band of the valid rows before
 # averaging, so a single exploding or non-finite row cannot dominate the
 # merged gradient. These numpy versions are the sequential oracle;
-# :func:`trimmed_combine_torch` is the device twin the PS step applies.
+# :func:`trimmed_combine_torch` is the device twin, which the PS step
+# applies on the CPU and which the CUDA kernel of
+# ``kernels/olaf_robust.py`` is held to on a card.
 
 def coordinate_clip(rows: np.ndarray, bound: float) -> np.ndarray:
     """Clip every coordinate of every row into ``[-bound, bound]``

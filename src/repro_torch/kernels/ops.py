@@ -3,7 +3,8 @@
 The counterparts of ``repro.kernels.ops``'s ``olaf_combine``,
 ``olaf_combine_multi``, ``olaf_combine_window``, ``olaf_forward``,
 ``olaf_enqueue``, ``olaf_step``, ``olaf_step_multi``, ``flash_attention`` and
-``decode_attention``, without the TPU tiling arguments. CUDA
+``decode_attention``, without the TPU tiling arguments, and the PS step's
+robust combine (``olaf_robust_combine``, which ``repro`` leaves to XLA). CUDA
 operands launch the hand-written kernel; CPU operands take the kernel's
 plain PyTorch version. Any other device, or operands spread over more than
 one device, raises: there is no fallback from one to the other.
@@ -28,6 +29,8 @@ from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,
                                               stage_window)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,
                                               olaf_enqueue_plain)
+from repro_torch.kernels.olaf_robust import (olaf_robust_combine_cuda,
+                                             olaf_robust_combine_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain
 
 
@@ -203,6 +206,26 @@ def olaf_step_multi(states: TorchQueueState, clusters, workers, gen_times,
                          f"{tuple(states.payload.shape)}")
     return olaf_step(states, clusters, workers, gen_times, rewards, payloads,
                      reward_threshold, send, capacity, None, screen, k=k)
+
+
+def olaf_robust_combine(rows, weights, n_screen, n_send, *,
+                        threshold: float) -> torch.Tensor:
+    """The PS step's combine under the ingress screen: the weighted mean
+    ``(weights @ rows) / max(sum(weights), 1)`` of the drained block
+    ``rows`` (K, D), or its trimmed mean (``aggregation.
+    trimmed_combine_torch``) where ``n_screen / max(n_send, 1) >
+    threshold``; ``n_screen`` and ``n_send`` are 0-dim counts on the rows'
+    device, so the choice is made there. On a card this is one
+    :func:`~repro_torch.kernels.olaf_robust.olaf_robust_combine_cuda` launch,
+    which takes up to ``olaf_robust.MAX_ROWS`` (32) rows and raises above
+    that; on the CPU, the plain composition.
+    """
+    dev = _device_of(rows, weights, n_screen, n_send,
+                     op="olaf_robust_combine")
+    fn = _route("olaf_robust_combine", dev, olaf_robust_combine_cuda,
+                olaf_robust_combine_plain)
+    return fn(rows, weights, n_screen.to(torch.int32),
+              n_send.to(torch.int32), threshold=threshold)
 
 
 def olaf_burst_multi(states: TorchQueueState, clusters, workers, gen_times,

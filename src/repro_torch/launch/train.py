@@ -46,7 +46,6 @@ from repro_torch import tracing
 from repro_torch.checkpoint.ckpt import (latest_step, restore_checkpoint,
                                          save_checkpoint)
 from repro_torch.configs import get_config
-from repro_torch.core.aggregation import trimmed_combine_torch
 from repro_torch.core.aom import (TorchAoMState, aom_average, aom_init,
                                   aom_update_block, staleness_mask)
 from repro_torch.core.hybrid import run_hybrid_multihop
@@ -59,6 +58,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import vecsim_mesh
 from repro_torch.kernels import ops
+from repro_torch.kernels.olaf_robust import MAX_ROWS
 from repro_torch.models import api
 from repro_torch.models.module import (flat_size, flatten_like, tree_leaves,
                                        tree_map, tree_unflatten,
@@ -159,10 +159,10 @@ def ps_step(state: PSState, burst: Dict[str, torch.Tensor], *, cfg: PSConfig
       3. ``ops.olaf_step``: Algorithm 1 over the burst, then drain-k (one
          CUDA kernel launch on a card, which updates the queue in place);
       4. the staleness bound;
-      5. the agg_count-weighted mean of the drained rows, or the trimmed
-         combine when the screened share of the burst exceeds
-         ``cfg.robust_threshold`` (both computed, one selected on the
-         device);
+      5. the agg_count-weighted mean of the drained rows, or (under the
+         screen) the trimmed combine when the screened share of the burst
+         exceeds ``cfg.robust_threshold``: ``ops.olaf_robust_combine``, one
+         CUDA kernel launch on a card that selects on the device;
       6. ``unflatten_like`` and 7. ``apply_updates``;
       8. the AoM integral over the drained rows;
       9. the last send time per cluster (a running max) and 10. the
@@ -171,8 +171,8 @@ def ps_step(state: PSState, burst: Dict[str, torch.Tensor], *, cfg: PSConfig
 
     Under :mod:`repro_torch.tracing` the body is the span ``ps.step``, tiled
     by ``ps.gate`` (1), ``ps.screen`` (2), ``ps.olaf_step`` (3-4),
-    ``ps.combine`` (5, with ``ps.trimmed`` around the trimmed combine),
-    ``ps.apply`` (6-7) and ``ps.feedback`` (8-11 and the stats).
+    ``ps.combine`` (5), ``ps.apply`` (6-7) and ``ps.feedback`` (8-11 and
+    the stats).
 
     ``burst`` holds ``now`` (0-dim float32), ``clusters``, ``workers``
     (U,) int32, ``times``, ``rewards``, ``losses`` (U,) float32,
@@ -199,6 +199,7 @@ def ps_step(state: PSState, burst: Dict[str, torch.Tensor], *, cfg: PSConfig
                 screen, med = screen_mask(payloads, med,
                                           factor=cfg.screen_factor, mask=send)
                 n_screen = (send & screen).sum(dtype=torch.int32)
+                n_send = send.sum(dtype=torch.int32)
         with tracing.span("ps.olaf_step"):
             queue, out = ops.olaf_step(state.queue, clusters, workers,
                                        burst["times"], burst["rewards"],
@@ -214,15 +215,13 @@ def ps_step(state: PSState, burst: Dict[str, torch.Tensor], *, cfg: PSConfig
             # each drained row is the mean of agg_count raw gradients: the
             # applied gradient is their exact weighted mean
             wts = valid * out["agg_count"].to(torch.float32)
-            g_flat = (wts @ out["payload"]) / torch.clamp(wts.sum(), min=1.0)
             if cfg.screen:
-                frac = n_screen.to(torch.float32) / torch.clamp(
-                    send.sum().to(torch.float32), min=1.0)
-                with tracing.span("ps.trimmed"):
-                    trimmed = trimmed_combine_torch(out["payload"], wts)
-                g_flat = torch.where(frac > cfg.robust_threshold, trimmed,
-                                     g_flat)
-                del trimmed  # D floats, not to be held through AdamW
+                g_flat = ops.olaf_robust_combine(
+                    out["payload"], wts, n_screen, n_send,
+                    threshold=cfg.robust_threshold)
+            else:
+                g_flat = (wts @ out["payload"]) / torch.clamp(wts.sum(),
+                                                              min=1.0)
         with tracing.span("ps.apply"):
             params, opt_state = apply_updates(
                 state.params, unflatten_like(g_flat, state.params),
@@ -291,13 +290,21 @@ class OlafAsyncTrainer:
         self.cfg, self.args, self.device = cfg, args, dev
         W = args.workers
         opt = OptConfig(lr=args.lr, grad_clip=1.0)
-        params = init_params(cfg, args.seed, dev)
-        self.dim = flat_size(params)
         # the optional flags are read with repro's defaults, so a partial
         # Namespace (examples/lm_train.py's) runs as it does in repro;
         # a capacity below the cluster count (--queue-slots) makes the
         # congestion regime reachable, which arms the send gate
         capacity = getattr(args, "queue_slots", 0) or max(W, 4)
+        drain_k = max(1, min(args.drain_k, capacity))
+        screen = bool(getattr(args, "ingress_screen", False))
+        if screen and dev.type == "cuda" and drain_k > MAX_ROWS:
+            raise ValueError(
+                f"--ingress-screen on a card combines at most {MAX_ROWS} "
+                f"drained rows a step (the robust-combine kernel's sort), "
+                f"and --drain-k {args.drain_k} with {capacity} queue slots "
+                f"drains {drain_k}: lower --drain-k or --queue-slots")
+        params = init_params(cfg, args.seed, dev)
+        self.dim = flat_size(params)
         self.crash_set = sorted({int(s) for s in
                                  getattr(args, "crash_workers", "").split(",")
                                  if s})
@@ -307,7 +314,7 @@ class OlafAsyncTrainer:
         n_clusters = max(W // 2, 2)
         self.n_clusters = n_clusters
         self.ps_cfg = PSConfig(
-            drain_k=max(1, min(args.drain_k, capacity)),
+            drain_k=drain_k,
             q_max=float(capacity),
             tx=TxControlConfig(
                 delta_threshold=getattr(args, "txctl_threshold", 0.5),
@@ -315,7 +322,7 @@ class OlafAsyncTrainer:
             opt=opt,
             cluster_of=torch.arange(W, dtype=torch.int32, device=dev)
             % n_clusters,
-            screen=bool(getattr(args, "ingress_screen", False)),
+            screen=screen,
             screen_factor=getattr(args, "screen_factor", 16.0),
             robust_threshold=getattr(args, "robust_threshold", 0.25),
             stale_bound=getattr(args, "staleness_bound", 0.0) or None,

@@ -5,8 +5,8 @@
 ``.backward``), a period of the layer stack (``model.period``, which fires
 again in each recompute under remat), a mixer (``model.attention``,
 ``model.ssd``) and the phases of the PS step (``ps.step``, ``ps.gate``,
-``ps.screen``, ``ps.olaf_step``, ``ps.combine``, ``ps.trimmed``,
-``ps.apply``, ``ps.feedback``).
+``ps.screen``, ``ps.olaf_step``, ``ps.combine``, ``ps.apply``,
+``ps.feedback``).
 
 Tracing is off by default: ``span()`` then reads one module flag and
 returns a shared null context, with no profiler label, CUDA event or

@@ -25,7 +25,10 @@ from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
                                               olaf_combine_plain)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
                                               olaf_enqueue_plain)
+from repro_torch.kernels.olaf_robust import (olaf_robust_combine_cuda,  # noqa: E402
+                                             olaf_robust_combine_plain)
 from repro_torch.kernels.olaf_step import olaf_step_cuda, olaf_step_plain  # noqa: E402
+from _trim_cases import trim_cases  # noqa: E402
 
 META_FIELDS = ("cluster", "worker", "seq", "agg_count", "replaceable",
                "gen_time", "reward", "next_seq", "n_dropped", "n_agg",
@@ -117,6 +120,107 @@ def test_combine_kernel_matches_plain(cuda_device, S, Q, U, D):
     assert torch.equal(got[1], want[1])
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def _robust_counts(dev, selected):
+    """(n_screen, n_send) on the card: 2 of 7 sent rows screened selects
+    the trimmed combine at the threshold 0.25, 1 of 7 the mean."""
+    return (torch.tensor(2 if selected else 1, dtype=torch.int32, device=dev),
+            torch.tensor(7, dtype=torch.int32, device=dev))
+
+
+def _check_robust(rows, w, selected):
+    """The kernel against the plain composition on the same card: NaN and
+    ±inf at the same places, the rest within atol 1e-6 and rtol 1e-6 on
+    either branch (the kernel sums the rows in order, cuBLAS in its own:
+    the atol for a column whose sum nearly cancels, the rtol for one whose
+    clipped outlier is large). One launch."""
+    counts = _robust_counts(rows.device, selected)
+    before = olaf_robust_combine_cuda.launches
+    got = ops.olaf_robust_combine(rows, w, *counts, threshold=0.25)
+    want = olaf_robust_combine_plain(rows, w, *counts, threshold=0.25)
+    torch.cuda.synchronize()
+    assert olaf_robust_combine_cuda.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    for pick in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(pick(got), pick(want)), pick.__name__
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("selected", [False, True])
+@pytest.mark.parametrize("case", list(trim_cases()))
+def test_robust_combine_kernel_matches_plain(cuda_device, case, selected):
+    rows, w = trim_cases()[case]
+    _check_robust(torch.from_numpy(rows).to(cuda_device),
+                  torch.from_numpy(w).to(cuda_device), selected)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("selected", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "column_view",
+                                    "aligned_view"])
+@pytest.mark.parametrize("K", [1, 2, 4, 7, 12, 32])
+def test_robust_combine_kernel_at_width(cuda_device, K, layout, selected):
+    """D = 2**20 + 3 with ties, outliers and non-finite entries, at a K of
+    each of the kernel's sort networks (2, 4, 8, 16 and 32 rows):
+    contiguous rows (an odd row stride: scalar loads), a column view one
+    float past a 16-byte boundary with a row stride of a multiple of 4
+    (16-byte loads between a masked head and tail, scalar stores), and a
+    view at the boundary (16-byte loads and stores, a tail of 3)."""
+    rng = np.random.default_rng(31 + K)
+    D = 2**20 + 3
+    pad = dict(contiguous=0, column_view=5, aligned_view=1)[layout]
+    block = rng.normal(size=(K, D + pad)).astype(np.float32)
+    block[:, ::7] = np.round(block[:, ::7])  # ties
+    block[1 % K, ::97] *= 1e3  # outliers
+    for value, row, every in ((np.nan, 0, 1009), (np.inf, 2, 2003),
+                              (-np.inf, 3, 3001), (np.inf, 1, 4001)):
+        block[row % K, rng.integers(0, D + pad, (D + pad) // every)] = value
+    base = torch.from_numpy(block).to(cuda_device)
+    rows = base[:, 1:1 + D] if layout == "column_view" else base[:, :D]
+    assert rows.stride(0) % 4 == (3 if layout == "contiguous" else 0)
+    assert (rows.data_ptr() % 16 == 0) == (layout != "column_view")
+    # agg counts 1, 2, 3, 0 (a row left out), 1, ...
+    w = torch.from_numpy(((np.arange(K) + 1) % 4).astype(np.float32)
+                         ).to(cuda_device)
+    _check_robust(rows, w, selected)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [32, 33])
+def test_robust_combine_refuses_more_than_32_rows_on_the_card(cuda_device,
+                                                              K):
+    """Up to 32 rows (the widest sort network) the route launches the
+    kernel; at 33 it raises with no launch, and so does building a trainer
+    whose screen would drain 33 rows a step: the card has no plain
+    route."""
+    rng = np.random.default_rng(K)
+    rows = torch.from_numpy(rng.normal(size=(K, 4099)).astype(np.float32)
+                            ).to(cuda_device)
+    w = torch.from_numpy(rng.integers(0, 3, K).astype(np.float32)
+                         ).to(cuda_device)
+    for selected in (False, True):
+        counts = _robust_counts(cuda_device, selected)
+        before = olaf_robust_combine_cuda.launches
+        if K > 32:
+            with pytest.raises(ValueError, match="over the kernel's 32"):
+                ops.olaf_robust_combine(rows, w, *counts, threshold=0.25)
+            assert olaf_robust_combine_cuda.launches == before
+            continue
+        got = ops.olaf_robust_combine(rows, w, *counts, threshold=0.25)
+        want = olaf_robust_combine_plain(rows, w, *counts, threshold=0.25)
+        torch.cuda.synchronize()
+        assert olaf_robust_combine_cuda.launches == before + 1
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    if K > 32:
+        from repro_torch.launch import train
+        args = train.build_parser().parse_args(
+            TRAIN_ARGV + ["--device", "cuda", "--workers", "64",
+                          "--batch", "64", "--drain-k", str(K)])
+        with pytest.raises(ValueError, match="at most 32 drained rows"):
+            train.OlafAsyncTrainer(get_config("smollm-360m").reduced(), args)
 
 
 @pytest.mark.cuda
@@ -212,12 +316,14 @@ def _forward_operands(rng, dev, S=21, Q=8, U=16, D=941, host=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrapper", ["olaf_step", "olaf_enqueue",
                                      "olaf_combine", "olaf_forward",
-                                     "olaf_forward_host"])
+                                     "olaf_forward_host",
+                                     "olaf_robust_combine"])
 def test_olaf_wrappers_are_one_kernel_per_call(cuda_device, wrapper):
     """One kernel and no other device operation per call: the trainer's
     drain (``send``, ``screen`` and ``capacity`` left out), the enqueue,
-    the combine and a whole forwarding boundary. From numpy index arrays
-    the boundary adds exactly one copy (one pinned staging buffer)."""
+    the combine, a whole forwarding boundary and the PS step's robust
+    combine (either branch). From numpy index arrays the boundary adds
+    exactly one copy (one pinned staging buffer)."""
     rng = np.random.default_rng(17)
     if wrapper in ("olaf_step", "olaf_enqueue"):
         Q, U, D = 8, 8, 941
@@ -231,6 +337,17 @@ def test_olaf_wrappers_are_one_kernel_per_call(cuda_device, wrapper):
             def call(x):
                 olaf_enqueue_cuda(x, *burst)
         mine, copies, other = _device_ops_per_call(call, st.clone)
+    elif wrapper == "olaf_robust_combine":
+        rows = torch.from_numpy(rng.normal(size=(4, 2**16 + 3)).astype(
+            np.float32)).to(cuda_device)
+        w = torch.tensor([1.0, 0.0, 2.0, 1.0], device=cuda_device)
+        for selected in (False, True):
+            counts = _robust_counts(cuda_device, selected)
+            assert _device_ops_per_call(
+                lambda _: ops.olaf_robust_combine(rows, w, *counts,
+                                                  threshold=0.25),
+                lambda: None) == (1, 0, 0), selected
+        return
     elif wrapper == "olaf_combine":
         (sl, cn, up), small = _forward_operands(rng, cuda_device)
         mine, copies, other = _device_ops_per_call(
@@ -581,7 +698,8 @@ def test_step_impl_xla_launches_no_kernel_on_the_card(cuda_device):
 def test_ps_step_makes_no_host_sync(cuda_device):
     """``ps_step`` on the card (screen, staleness bound, churn mask, the
     trimmed branch) runs under ``set_sync_debug_mode("error")``: no call in
-    it waits for the card. One ``olaf_step`` launch per step."""
+    it waits for the card. One ``olaf_step`` launch and one
+    ``olaf_robust_combine`` launch (step 5) per step."""
     from repro_torch.launch import train
     args = train.build_parser().parse_args(TRAIN_ARGV + ["--device", "cuda"])
     tr = train.OlafAsyncTrainer(get_config("smollm-360m").reduced(), args)
@@ -589,14 +707,14 @@ def test_ps_step_makes_no_host_sync(cuda_device):
     tr._churn_events(args.crash_at)
     bursts = [tr.next_burst() for _ in range(3)]
     torch.cuda.synchronize()
-    olaf_step_cuda.launches = 0
+    olaf_step_cuda.launches = olaf_robust_combine_cuda.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         for b in bursts:
             tr.state, stats = train.ps_step(tr.state, b, cfg=tr.ps_cfg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert olaf_step_cuda.launches == 3
+    assert olaf_step_cuda.launches == olaf_robust_combine_cuda.launches == 3
     assert all(v.device.type == "cuda" and v.dim() == 0
                for v in stats.values())
 

@@ -20,7 +20,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E402
 from repro_torch.kernels import (decode_attention, flash_attention,  # noqa: E402
-                                 olaf_combine, olaf_enqueue, olaf_step)
+                                 olaf_combine, olaf_enqueue, olaf_robust,
+                                 olaf_step)
 from repro_torch.kernels._build import CSRC  # noqa: E402
 
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
@@ -47,6 +48,7 @@ def parse_struct(source: Path, name: str):
 @pytest.mark.parametrize("module,source,struct", [
     (olaf_step, "olaf_step.cu", "OlafStepArgs"),
     (olaf_combine, "olaf_combine.cu", "OlafCombineArgs"),
+    (olaf_robust, "olaf_robust.cu", "OlafRobustArgs"),
     (flash_attention, "flash_attention.cu", "FlashArgs"),
     (decode_attention, "decode_attention.cu", "DecodeArgs"),
 ])
@@ -185,11 +187,19 @@ def test_cycle_kernels_refuse_a_size_over_int32(dim):
             olaf_enqueue.olaf_enqueue_cuda(st, *burst)
 
 
-@pytest.mark.parametrize("dim", ["S", "Q", "U", "D", "K"])
+@pytest.mark.parametrize("dim", ["S", "Q", "U", "D", "K", "robust.D"])
 def test_combine_kernel_refuses_a_size_over_int32(dim):
+    """The window combine at each size, and the PS step's robust combine
+    (``robust.D``: its row width; K is at most 32 there)."""
     sizes = dict(S=1, Q=4, U=2, D=8, K=1)
     for n, match in ((BIG, r"over the kernel's limit of 2\*\*31 - 1"),
                      (BIG - 1, "needs CUDA tensors")):
+        if dim == "robust.D":
+            with pytest.raises(ValueError, match=match):
+                olaf_robust.olaf_robust_combine_cuda(
+                    _meta((4, n)), _meta((4,)), _meta((), torch.int32),
+                    _meta((), torch.int32), threshold=0.25)
+            continue
         S, Q, U, D, K = ({**sizes, dim: n}[k] for k in "SQUDK")
         with pytest.raises(ValueError, match=match):
             olaf_combine.olaf_combine_cuda(
@@ -198,3 +208,16 @@ def test_combine_kernel_refuses_a_size_over_int32(dim):
                 _meta((S, U), torch.int32),
                 drain_sw=_meta((K,), torch.int32),
                 drain_slot=_meta((K,), torch.int32))
+
+
+@pytest.mark.parametrize("K,match", [(32, "needs CUDA tensors"),
+                                     (33, "over the kernel's 32")])
+def test_robust_combine_refuses_more_rows_than_its_sort(K, match):
+    """The robust combine sorts each column's rows in registers, at most
+    ``MAX_ROWS`` (32) of them: 33 rows raise before any launch, 32 pass
+    the check (and fail next, off a card)."""
+    assert olaf_robust.MAX_ROWS == 32
+    with pytest.raises(ValueError, match=match):
+        olaf_robust.olaf_robust_combine_cuda(
+            _meta((K, 8)), _meta((K,)), _meta((), torch.int32),
+            _meta((), torch.int32), threshold=0.25)

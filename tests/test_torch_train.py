@@ -49,11 +49,13 @@ from repro_torch.core import aom, txctl  # noqa: E402
 from repro_torch.core.aggregation import (nanquantile_linear,  # noqa: E402
                                           trimmed_combine_torch)
 from repro_torch.core.olaf_queue import queue_init, screen_mask  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import api, module  # noqa: E402
 from repro_torch.models.transformer import (opt_state_from_jax,  # noqa: E402
                                             params_from_jax)
 from repro_torch.optim import optimizers  # noqa: E402
+from _trim_cases import trim_cases as _trim_cases  # noqa: E402
 
 RTOL = 1e-6
 ARCH = "smollm-360m"
@@ -206,36 +208,31 @@ def test_screen_mask_matches_jax(med0):
     assert not bool(sp[7])  # masked: never screened
 
 
-def _trim_cases():
-    rng = np.random.default_rng(3)
-    K, D = 4, 33
-    rows = rng.normal(size=(K, D)).astype(np.float32)
-    ties = np.round(rows * 2) / 2  # many equal values per column
-    ties[:, 0] = 1.0
-    nonfinite = rows.copy()
-    nonfinite[0, 3] = np.inf
-    nonfinite[1, 4] = -np.inf
-    nonfinite[2, 5] = np.nan
-    nonfinite[0, 6] = np.inf
-    nonfinite[1, 6] = np.inf
-    return {
-        "plain": (rows, np.float32([1, 2, 1, 3])),
-        "ties": (ties, np.float32([1, 1, 2, 0])),
-        "all_invalid": (rows, np.zeros(K, np.float32)),
-        "one_valid": (rows, np.float32([0, 0, 2, 0])),
-        "nonfinite": (nonfinite, np.float32([1, 1, 1, 1])),
-        "nonfinite_two_valid": (nonfinite, np.float32([1, 0, 0, 3])),
-        # a drained block of twelve rows
-        "twelve_rows": (np.concatenate([nonfinite, ties, rows]),
-                        np.float32([1, 2, 0, 1] * 3)),
-    }
-
-
 @pytest.mark.parametrize("case", list(_trim_cases()))
 def test_trimmed_combine_matches_jax(case):
     rows, w = _trim_cases()[case]
     want = jax_trimmed_combine(jnp.asarray(rows), jnp.asarray(w))
     got = trimmed_combine_torch(_t(rows), _t(w))
+    _same(got, want, case, atol=1e-6)
+
+
+@pytest.mark.parametrize("selected", [False, True])
+@pytest.mark.parametrize("case", list(_trim_cases()))
+def test_robust_combine_route_matches_jax(case, selected):
+    """``ops.olaf_robust_combine`` on the CPU (the plain route, the
+    kernel's yardstick on a card) against ``repro``'s ``ps_step`` combine:
+    the weighted mean, or the trimmed combine where the screened share of
+    the sent rows exceeds the threshold (2 of 7 sent, or 1 of 7, against
+    0.25), picked on the device."""
+    rows, w = _trim_cases()[case]
+    n_screen, n_send = (2 if selected else 1), 7
+    mean = (jnp.asarray(w) @ jnp.asarray(rows)) / jnp.maximum(w.sum(), 1.0)
+    want = jnp.where(n_screen / max(n_send, 1) > 0.25,
+                     jax_trimmed_combine(jnp.asarray(rows), jnp.asarray(w)),
+                     mean)
+    got = ops.olaf_robust_combine(
+        _t(rows), _t(w), torch.tensor(n_screen, dtype=torch.int32),
+        torch.tensor(n_send), threshold=0.25)
     _same(got, want, case, atol=1e-6)
 
 
