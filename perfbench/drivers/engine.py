@@ -14,7 +14,8 @@ timed apart (CUDA events) and printed. With ``--trace 1`` a CUDA-event
 span wraps every ``ps_step`` call, the queue's metadata and the burst's
 are kept at each ``olaf_step`` call for the least-bytes count
 (:mod:`perfbench.reference.cost`), and a profiled stretch of
-``profile_iters`` more cycles follows.
+``profile_iters`` more cycles follows, and then as many again with the
+port's own spans on (``lib/program.py``), their stats rows kept.
 
 Once the window has closed and the trainer is freed, the reference PS
 (:mod:`perfbench.reference.ps`) follows the same first cycles on the same
@@ -29,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench.lib import faults, spans, trace
+from perfbench.lib import faults, program, spans, trace
 from perfbench.lib.olaf import build
 from perfbench.reference import compare as C
 from perfbench.reference import cost, lm
@@ -207,6 +208,13 @@ def run(cell: dict, config: dict, seed: int, seconds: float, traced: bool,
         finally:
             for c in reversed(clocks):
                 c.__exit__(None, None, None)
+        records, rows = [], []
+        if traced:
+            p0 = len(eng.pending)
+            records = program.stretch(eng.cycle, cell["profile_iters"])
+            k = list(T.STAT_KEYS)
+            rows = [dict(zip(k, map(float, r)))
+                    for r in T.read_stats(eng.pending[p0:])]
         counts = eng.counts(steps, steps + it)
     draw_ms = ([a.elapsed_time(b) for a, b in eng.draws[n0:n0 + it]]
                if on_card else [])
@@ -219,7 +227,8 @@ def run(cell: dict, config: dict, seed: int, seconds: float, traced: bool,
     # an update is lost where its cycle's counts are not finite
     failed = U * sum(not np.isfinite(list(c.values())).all() for c in counts)
     ctx = {"iters": it, "window_s": window_s, "spans": {"ps_step": ps_ms},
-           "profile": prof}
+           "profile": prof, "program_spans": records,
+           "program_iters": len(rows), "program_stats": rows}
     if traced:
         param_bytes = 2 if config["dtype"] == "bfloat16" else 4
         cyc = clocks[1].cycle_bytes(D)

@@ -9,7 +9,8 @@ steps the reference follows. The window then calls ``step()`` until
 ``--seconds`` have passed and ends at the ``synchronize`` after the last
 iteration that began inside it. With ``--trace 1`` a CUDA-event span
 wraps every ``worker_grad`` and ``ps_step`` call in the window, and a
-profiled stretch of ``profile_iters`` more iterations follows it.
+profiled stretch of ``profile_iters`` more iterations follows it, and then
+as many again with the port's own spans on (``lib/program.py``).
 
 Once the window has closed and the trainer is freed, the reference
 (:mod:`perfbench.reference.train`) follows the same first steps and
@@ -22,7 +23,7 @@ import time
 
 import numpy as np
 
-from perfbench.lib import faults, spans, trace
+from perfbench.lib import faults, program, spans, trace
 from perfbench.lib.olaf import build
 from perfbench.reference import compare as C
 from perfbench.reference import flops, lm
@@ -109,6 +110,8 @@ def run(cell: dict, config: dict, seed: int, seconds: float, traced: bool,
         finally:
             for c in reversed(clocks):
                 c.__exit__(None, None, None)
+        records = (program.stretch(tr.step, cell["profile_iters"])
+                   if traced else [])
         stats = T.read_stats(tr.pending[steps:steps + it])
     U = tr.burst_size
     per_worker = (job["batch"] // job["workers"]) * job["seq"]
@@ -129,7 +132,8 @@ def run(cell: dict, config: dict, seed: int, seconds: float, traced: bool,
            "spans": {"worker_grad": grad_ms, "ps_step": ps_ms},
            "model_flops": tokens * flops.train_flops_per_token(
                config, job["seq"]),
-           "profile": prof}
+           "profile": prof, "program_spans": records,
+           "program_iters": cell["profile_iters"] if traced else 0}
     return {"e2e": {"train_tokens_per_s": tokens / window_s,
                     "setup_s": setup_s},
             "ctx": ctx, "attempted": it * U, "failed": failed,

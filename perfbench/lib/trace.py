@@ -17,6 +17,7 @@ import time
 from typing import Callable, Dict, List, Tuple
 
 WINDOW = "perfbench.window"
+PROGRAM = "olaf."  # ``repro_torch.tracing.PREFIX``: the port's span labels
 TOP = 10
 _PART = re.compile(r"[A-Za-z_]\w*(?:Functor|_kernel|_cuda|Kernel|_impl)\w*")
 _GENERIC = {"elementwise_kernel", "vectorized_elementwise_kernel",
@@ -110,14 +111,24 @@ def profile(step: Callable[[], None], iters: int) -> Profile:
                 step()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device, host = [], []
-    for e in prof.events():
-        tr = e.time_range
-        if e.name.startswith("perfbench."):
-            # a label is also drawn on the device's timeline: it is no
-            # device operation
-            if e.device_type != DeviceType.CUDA:
-                host.append((tr.start, tr.end, e.name))
-        elif e.device_type == DeviceType.CUDA:
-            device.append((tr.start, tr.end, short_name(e.name)))
+    device, host = split(prof.events(), DeviceType.CUDA)
     return reduce(device, host, iters, wall)
+
+
+def split(events, cuda) -> Tuple[list, list]:
+    """The profiler's ``events`` as (device operations, the harness's host
+    labels), each (start µs, end µs, name); ``cuda`` is the device type of
+    the device's timeline. A label is also drawn on that timeline: it is
+    no device operation. The port's span labels (``olaf.*``) are neither,
+    so no idle gap is named after them."""
+    device, host = [], []
+    for e in events:
+        tr = e.time_range
+        if e.name.startswith(PROGRAM):
+            continue
+        if e.name.startswith("perfbench."):
+            if e.device_type != cuda:
+                host.append((tr.start, tr.end, e.name))
+        elif e.device_type == cuda:
+            device.append((tr.start, tr.end, short_name(e.name)))
+    return device, host

@@ -14,6 +14,12 @@ float32, TF32 off; the reference) or :func:`mm_fp8` (both operands, and
 the incoming gradient in the backward, rounded to float8 e4m3 with a
 per-tensor scale; the control that a lower precision must fail).
 
+A configuration that names a reference module of its own
+(``"reference"``, :mod:`perfbench.reference.models`) has its table and
+loss from that module: :func:`param_table` and :func:`loss` hand the call
+on, and everything built on them (:func:`draw_params`, :func:`n_params`,
+:func:`loss_and_grads`) serves that model unchanged.
+
 Departures from the published models, kept because the program under test
 runs them so: RMSNorm's epsilon is 1e-6 (the published configs state
 1e-5); the Mamba-2 residual stream is not kept in float32; weights are
@@ -26,6 +32,8 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from perfbench.reference.models import model_of
 
 RMS_EPS = 1e-6
 E4M3_MAX = 448.0
@@ -97,7 +105,11 @@ def _dense(path, shape, fan_in, L=None):
 
 def param_table(cfg: dict) -> List[Param]:
     """Every parameter of the model in ``cfg`` (a configuration file's
-    dict), layers stacked on a leading axis of ``num_hidden_layers``."""
+    dict), layers stacked on a leading axis of ``num_hidden_layers``; the
+    configuration's own reference module's where it names one."""
+    model = model_of(cfg)
+    if model is not None:
+        return model.param_table(cfg)
     d, L, V = cfg["hidden_size"], cfg["num_hidden_layers"], cfg["vocab_size"]
     out = [Param("embedding/embed", (V, d), "model", ("normal", 0.02)),
            Param("final_norm/scale", (d,), "model", ("ones",))]
@@ -297,6 +309,9 @@ def ssm_layer(P, i, x, cfg, mm):
 def loss(P: Dict[str, torch.Tensor], tokens, labels, cfg: dict,
          mm: Callable = mm_f32) -> torch.Tensor:
     """Mean next-token cross entropy of one block of rows (float32)."""
+    model = model_of(cfg)
+    if model is not None:
+        return model.loss(P, tokens, labels, cfg, mm)
     layer = dense_layer if cfg["family"] == "dense" else ssm_layer
     E = P["embedding/embed"]
     x = E[tokens.long()]

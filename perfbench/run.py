@@ -8,10 +8,12 @@ from the root of a checkout. Everything is found by name:
 ``BENCHMARK.json`` names the cell's configuration and metrics,
 ``perfbench/workloads/<cell>.json`` holds its traffic (the driver, the
 job's parameters, the limits of its check),
-``perfbench/configs/<config>.json`` the model, ``perfbench/drivers/
-<driver>.py`` runs the cell and ``perfbench/metrics/<metric>.py`` reads
-one per-layer metric from what the traced run recorded. A new cell,
-configuration or metric is a new file, and no code changes.
+``perfbench/configs/<config>.json`` the model (and, where it names one,
+``perfbench/reference/<module>.py`` its plain reference),
+``perfbench/drivers/<driver>.py`` runs the cell and
+``perfbench/metrics/<metric>.py`` reads one per-layer metric from what
+the traced run recorded. A new cell, configuration, reference model or
+metric is a new file, and no code changes.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics with
@@ -69,6 +71,8 @@ def plan(cell: str, root: Path = ROOT) -> dict:
                           .read_text())
     conf = next(c for c in spec["configs"] if c["name"] == entry["config"])
     config = json.loads((root / conf["file"]).read_text())
+    if "reference" in config:  # its plain model lies in this checkout
+        config["reference_dir"] = str(bench_dir / "reference")
     e2e = [m for m in spec["end_to_end"] if _applies(m, cell)]
     e2e_names = {m["name"] for m in e2e}
     layer = [m for m in spec["per_layer"]

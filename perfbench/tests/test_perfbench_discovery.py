@@ -1,13 +1,15 @@
-"""A cell and a per-layer metric added as files, in a copy of the
-benchmark, are taken with no edit of its code; and the reduction of a
-profiled stretch."""
+"""A cell, a per-layer metric and a configuration with a reference model
+of its own, each added as files in a copy of the benchmark, are taken
+with no edit of its code; the reduction of a profiled stretch; and what a
+reader takes from the port's own spans."""
 import json
 import shutil
 
 import pytest
 
 from perfbench_testkit import ROOT, R, reduced_plan, run_reduced
-from perfbench.lib import trace
+from perfbench.lib import program, trace
+from perfbench.reference import flops, lm, models
 
 READER = '''
 def read(ctx):
@@ -85,3 +87,153 @@ def test_a_profiled_stretch_reduces_to_busy_time_and_named_gaps():
 def test_a_device_operation_keeps_a_name_that_tells_it_apart(name, short):
     assert trace.short_name(name) == short
 
+
+
+#: A Llama-style decoder as a reference module of its own: the parameter
+#: table written out, the loss a loop over ``lm``'s dense layer, and 6·N
+#: FLOPs a token (the default counts attention besides).
+REFERENCE = '''
+from perfbench.reference import lm
+
+CALLS = []
+
+
+def param_table(cfg):
+    CALLS.append("param_table")
+    d, L, V = cfg["hidden_size"], cfg["num_hidden_layers"], cfg["vocab_size"]
+    H, KV = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    Dh, Fd, pre = d // H, cfg["intermediate_size"], "layers/sub_0/"
+    rows = [lm.Param("embedding/embed", (V, d), "model", ("normal", 0.02)),
+            lm.Param("final_norm/scale", (d,), "model", ("ones",)),
+            lm.Param(pre + "ln1/scale", (L, d), "model", ("ones",)),
+            lm.Param(pre + "ln2/scale", (L, d), "model", ("ones",)),
+            lm._dense(pre + "attn/wq", (d, H, Dh), d, L),
+            lm._dense(pre + "attn/wk", (d, KV, Dh), d, L),
+            lm._dense(pre + "attn/wv", (d, KV, Dh), d, L),
+            lm._dense(pre + "attn/wo", (H, Dh, d), H * Dh, L),
+            lm._dense(pre + "mlp/wg", (d, Fd), d, L),
+            lm._dense(pre + "mlp/wu", (d, Fd), d, L),
+            lm._dense(pre + "mlp/wd", (Fd, d), Fd, L)]
+    return sorted(rows, key=lambda p: p.path.split("/"))
+
+
+def loss(P, tokens, labels, cfg, mm):
+    CALLS.append("loss")
+    E = P["embedding/embed"]
+    x = E[tokens.long()]
+    for i in range(cfg["num_hidden_layers"]):
+        x = lm.dense_layer(P, i, x, cfg, mm)
+    logits = mm(lm.rms(x, P["final_norm/scale"]), E.t())
+    return lm.F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              labels.reshape(-1).long())
+
+
+def train_flops_per_token(cfg, seq):
+    return 6.0 * lm.n_params(cfg)
+'''
+
+
+@pytest.fixture
+def copy_with_a_reference_model(tmp_path):
+    """A copy of the benchmark with a configuration ``llama-plain`` (the
+    program's smollm-360m, its reference ``reference/llama_plain.py``)
+    and its cell, all new files beside an edited ``BENCHMARK.json``."""
+    shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = tmp_path / "perfbench"
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    conf = next(c for c in spec["configs"] if c["name"] == "smollm-360m")
+    spec["configs"].append(dict(conf, name="llama-plain",
+                                file="perfbench/configs/llama-plain.json"))
+    spec["workloads"].append({"name": "llama-plain.train-long",
+                              "config": "llama-plain",
+                              "traffic": "train-long", "chips": 1,
+                              "why": "a reference model of its own"})
+    for m in spec["per_layer"]:
+        if "smollm-360m.train-long" in m.get("workloads", ()):
+            m["workloads"].append("llama-plain.train-long")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    config = json.loads((bench / "configs" / "smollm-360m.json").read_text())
+    (bench / "configs" / "llama-plain.json").write_text(
+        json.dumps(dict(config, reference="llama_plain")))
+    cell = json.loads((bench / "workloads" / "smollm-360m.train-long.json")
+                      .read_text())
+    (bench / "workloads" / "llama-plain.train-long.json").write_text(
+        json.dumps(dict(cell, config="llama-plain")))
+    (bench / "reference" / "llama_plain.py").write_text(REFERENCE)
+    return tmp_path, "llama-plain.train-long"
+
+
+def test_a_reference_model_added_as_a_file_is_run_and_checked(
+        copy_with_a_reference_model):
+    root, cell = copy_with_a_reference_model
+    added = {"configs/llama-plain.json", "workloads/llama-plain.train-long"
+             ".json", "reference/llama_plain.py"}
+    for path in (root / "perfbench").rglob("*"):
+        rel = path.relative_to(root / "perfbench").as_posix()
+        if path.is_file() and rel not in added:
+            assert path.read_bytes() == (ROOT / "perfbench" / rel) \
+                .read_bytes(), rel
+    pl = reduced_plan(cell, root, check_steps=2)
+    model = models.model_of(pl["config"])
+    assert model.__file__ == str(root / "perfbench" / "reference"
+                                 / "llama_plain.py")
+    # the module's count, not the default's (which adds attention)
+    assert flops.train_flops_per_token(pl["config"], 16) \
+        == 6.0 * lm.n_params(pl["config"])
+    del model.CALLS[:]
+    line = run_reduced(cell, pl=pl)
+    assert line["correct"], line["compared"]
+    assert {"param_table", "loss"} <= set(model.CALLS)
+    assert not run_reduced(cell, pl=pl, fault="altered")["correct"]
+
+
+class Rec:
+    def __init__(self, name, id, parent, device_ms):
+        self.name, self.id, self.parent = name, id, parent
+        self.device_ms = device_ms
+
+
+def test_a_reader_takes_span_time_per_iteration_or_per_parent():
+    recs = [Rec("worker.grad", 1, None, 10.0),
+            Rec("worker.forward", 2, 1, 4.0),
+            Rec("model.period", 3, 2, 3.0), Rec("model.ssd", 4, 3, 2.0),
+            Rec("worker.backward", 5, 1, 6.0),
+            Rec("model.period", 6, 5, 3.0), Rec("model.ssd", 7, 6, 2.5),
+            Rec("worker.grad", 8, None, 10.0),
+            Rec("worker.forward", 9, 8, 4.0), Rec("model.ssd", 10, 9, 1.0)]
+    ctx = {"program_spans": recs, "program_iters": 1}
+    assert program.span_ms(ctx, "model.ssd") == pytest.approx(5.5)
+    assert program.span_ms(ctx, "model.attention", "model.ssd",
+                           under="worker.forward", per="worker.grad") \
+        == pytest.approx(1.5)
+    assert program.span_ms(ctx, "model.attention") is None
+    assert program.span_ms(dict(ctx, program_iters=0), "model.ssd") is None
+    # off a card a span has no device time
+    cpu = [Rec(r.name, r.id, r.parent, None) for r in recs]
+    assert program.span_ms(dict(ctx, program_spans=cpu), "model.ssd") \
+        is None
+
+
+class Event:
+    def __init__(self, name, start, end, device_type):
+        self.name, self.device_type = name, device_type
+        self.time_range = type("R", (), {"start": start, "end": end})
+
+
+def test_the_ports_labels_are_no_device_operation_and_name_no_gap():
+    CUDA, CPU = "cuda", "cpu"
+    events = [Event(trace.WINDOW, 0.0, 100.0, CPU),
+              Event("perfbench.ps_step", 0.0, 90.0, CPU),
+              Event("perfbench.ps_step", 1.0, 80.0, CUDA),
+              Event("olaf.ps.combine", 10.0, 60.0, CPU),
+              Event("olaf.ps.combine", 12.0, 60.0, CUDA),
+              Event("k1", 20.0, 30.0, CUDA)]
+    device, host = trace.split(events, CUDA)
+    assert device == [(20.0, 30.0, "k1")]
+    assert [n for *_, n in host] == [trace.WINDOW, "perfbench.ps_step"]
+    p = trace.reduce(device, host, iters=1, wall_s=1e-4)
+    assert p.device_events == 1 and p.busy_s == pytest.approx(10e-6)
+    # the gap from 30 begins inside ``olaf.ps.combine`` too: the harness's
+    # label names it
+    assert set(p.gaps) == {"perfbench.ps_step"}

@@ -82,3 +82,48 @@ def test_each_configuration_is_the_programs(config):
     (ROOT / "perfbench" / "metrics").glob("*.py")), ids=lambda p: p.stem)
 def test_a_reader_with_nothing_to_read_returns_nothing(reader):
     assert R.load_module(reader).read({}) is None
+
+
+#: What the parent of the reference-module lookup gave for each
+#: configuration: parameters, training FLOPs a token at the cell's
+#: sequence, and at the reduced size (seed ``SEED``) the SHA-256 of the
+#: drawn weights and the reference's loss on one worker's first batch.
+FROZEN = {
+    "smollm-360m": (361_821_120, 2548414080.0, "b43c12012ec056d9d5213cfce"
+                    "75bed0aa2c829fe89c4259a5494ff92ed2d2b32",
+                    5.592703104019165),
+    "mamba2-130m": (128_983_488, 773900928.0, "7a98fcd001c17be3e1165e229"
+                    "bebc88c3492007daf89ea64396d4eeec42b5126",
+                    5.54120659828186),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FROZEN))
+def test_the_default_reference_model_is_unchanged(name):
+    import hashlib
+
+    import torch
+
+    from perfbench.reference import data, flops, lm
+    from perfbench_testkit import REDUCED, SEED, few_threads
+    n, train_flops, digest, loss = FROZEN[name]
+    cfg = json.loads((ROOT / "perfbench" / "configs" / f"{name}.json")
+                     .read_text())
+    assert "reference" not in cfg
+    seq = json.loads((ROOT / "perfbench" / "workloads"
+                      / f"{name}.train-long.json").read_text())["job"]["seq"]
+    assert lm.n_params(cfg) == n == cfg["parameters"]
+    assert flops.train_flops_per_token(cfg, seq) == train_flops
+    red = dict(cfg, **REDUCED[name])
+    P = lm.draw_params(red, SEED, torch.device("cpu"))
+    h = hashlib.sha256()
+    for k in sorted(P):
+        h.update(k.encode())
+        h.update(P[k].contiguous().view(torch.uint8).numpy().tobytes())
+    assert h.hexdigest() == digest
+    b = data.token_batch(red["vocab_size"], 16, 8, 4, 1, SEED, 0)
+    with few_threads(1):
+        got, _ = lm.loss_and_grads(P, torch.from_numpy(b["tokens"]),
+                                   torch.from_numpy(b["labels"]), red,
+                                   block_rows=1)
+    assert got == pytest.approx(loss, rel=1e-6)
