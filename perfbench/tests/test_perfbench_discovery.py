@@ -1,13 +1,15 @@
-"""A cell, a per-layer metric and a configuration with a reference model
-of its own, each added as files in a copy of the benchmark, are taken
-with no edit of its code; the reduction of a profiled stretch; and what a
-reader takes from the port's own spans."""
+"""A cell, a per-layer metric, a configuration with a reference model of
+its own and a new architecture, each added as files in a copy of the
+benchmark, are taken with no edit of its code; the reduction of a
+profiled stretch; and what a reader takes from the port's own spans."""
+import dataclasses
 import json
 import shutil
 
 import pytest
 
-from perfbench_testkit import ROOT, R, reduced_plan, run_reduced
+from perfbench_testkit import (ROOT, R, check_the_ports_spans, reduced_plan,
+                               run_reduced)
 from perfbench.lib import program, trace
 from perfbench.reference import flops, lm, models
 
@@ -133,51 +135,81 @@ def train_flops_per_token(cfg, seq):
 '''
 
 
-@pytest.fixture
-def copy_with_a_reference_model(tmp_path):
-    """A copy of the benchmark with a configuration ``llama-plain`` (the
-    program's smollm-360m, its reference ``reference/llama_plain.py``)
-    and its cell, all new files beside an edited ``BENCHMARK.json``."""
+#: The two configurations added as files: ``llama-plain`` is the program's
+#: smollm-360m under a reference module of its own; ``mqa-decoder`` is an
+#: architecture no other test names, with its own registry name,
+#: ``cpu_sizes`` and ``family`` besides. ``port`` is the registry entry
+#: that the PR adding such a model puts under ``src/``, stood in for by one
+#: the test registers for its duration: a decoder of one layer with one
+#: key-value head, whose reduced sizes are no other configuration's.
+ADDED = [
+    pytest.param(dict(name="llama-plain", port=None, sizes={}, config={},
+                      fault="altered"), id="reference-model"),
+    pytest.param(dict(name="mqa-decoder",
+                      port=dict(n_layers=1, n_kv_heads=1),
+                      sizes=dict(num_hidden_layers=1, num_key_value_heads=1),
+                      config=dict(family="decoder-mqa", parameters=None),
+                      fault="half_batch"), id="new-architecture"),
+]
+
+
+@pytest.fixture(params=ADDED)
+def copy_with_a_configuration(request, tmp_path, monkeypatch):
+    """A copy of the benchmark with the configuration ``request.param``
+    names, its reference module and its cell: all new files beside
+    ``BENCHMARK.json`` entries appended to its lists."""
+    case = request.param
+    name, module = case["name"], case["name"].replace("-", "_")
+    config = json.loads((ROOT / "perfbench" / "configs" / "smollm-360m.json")
+                        .read_text())
+    if case["port"]:
+        from repro_torch.configs import base, get_config
+        monkeypatch.setitem(base._REGISTRY, name, dataclasses.replace(
+            get_config(config["registry"]), name=name, **case["port"]))
+        config["registry"] = name
+    config.update(case["config"], **case["sizes"], reference=module)
+    config["cpu_sizes"] = dict(config["cpu_sizes"], **case["sizes"])
     shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = tmp_path / "perfbench"
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    like, cell = "smollm-360m.train-long", f"{name}.train-long"
     conf = next(c for c in spec["configs"] if c["name"] == "smollm-360m")
-    spec["configs"].append(dict(conf, name="llama-plain",
-                                file="perfbench/configs/llama-plain.json"))
-    spec["workloads"].append({"name": "llama-plain.train-long",
-                              "config": "llama-plain",
+    spec["configs"].append(dict(conf, name=name,
+                                file=f"perfbench/configs/{name}.json"))
+    spec["workloads"].append({"name": cell, "config": name,
                               "traffic": "train-long", "chips": 1,
-                              "why": "a reference model of its own"})
-    for m in spec["per_layer"]:
-        if "smollm-360m.train-long" in m.get("workloads", ()):
-            m["workloads"].append("llama-plain.train-long")
+                              "why": "a configuration added as files"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if like in m.get("workloads", ()):
+            m["workloads"].append(cell)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
-    config = json.loads((bench / "configs" / "smollm-360m.json").read_text())
-    (bench / "configs" / "llama-plain.json").write_text(
-        json.dumps(dict(config, reference="llama_plain")))
-    cell = json.loads((bench / "workloads" / "smollm-360m.train-long.json")
-                      .read_text())
-    (bench / "workloads" / "llama-plain.train-long.json").write_text(
-        json.dumps(dict(cell, config="llama-plain")))
-    (bench / "reference" / "llama_plain.py").write_text(REFERENCE)
-    return tmp_path, "llama-plain.train-long"
+    (bench / "configs" / f"{name}.json").write_text(json.dumps(config))
+    wl = json.loads((bench / "workloads" / f"{like}.json").read_text())
+    (bench / "workloads" / f"{cell}.json").write_text(
+        json.dumps(dict(wl, config=name)))
+    (bench / "reference" / f"{module}.py").write_text(REFERENCE)
+    return tmp_path, cell, case
 
 
-def test_a_reference_model_added_as_a_file_is_run_and_checked(
-        copy_with_a_reference_model):
-    root, cell = copy_with_a_reference_model
-    added = {"configs/llama-plain.json", "workloads/llama-plain.train-long"
-             ".json", "reference/llama_plain.py"}
+def test_a_configuration_added_as_files_is_run_and_checked(
+        copy_with_a_configuration):
+    root, cell, case = copy_with_a_configuration
+    name, module = case["name"], case["name"].replace("-", "_")
+    added = {f"configs/{name}.json", f"workloads/{cell}.json",
+             f"reference/{module}.py"}
     for path in (root / "perfbench").rglob("*"):
         rel = path.relative_to(root / "perfbench").as_posix()
         if path.is_file() and rel not in added:
             assert path.read_bytes() == (ROOT / "perfbench" / rel) \
                 .read_bytes(), rel
     pl = reduced_plan(cell, root, check_steps=2)
+    # the sizes are the file's own, and are the program's reduced model's
+    for k, v in case["sizes"].items():
+        assert pl["config"][k] == v, k
     model = models.model_of(pl["config"])
     assert model.__file__ == str(root / "perfbench" / "reference"
-                                 / "llama_plain.py")
+                                 / f"{module}.py")
     # the module's count, not the default's (which adds attention)
     assert flops.train_flops_per_token(pl["config"], 16) \
         == 6.0 * lm.n_params(pl["config"])
@@ -185,7 +217,8 @@ def test_a_reference_model_added_as_a_file_is_run_and_checked(
     line = run_reduced(cell, pl=pl)
     assert line["correct"], line["compared"]
     assert {"param_table", "loss"} <= set(model.CALLS)
-    assert not run_reduced(cell, pl=pl, fault="altered")["correct"]
+    assert not run_reduced(cell, pl=pl, fault=case["fault"])["correct"]
+    check_the_ports_spans(reduced_plan(cell, root))
 
 
 class Rec:

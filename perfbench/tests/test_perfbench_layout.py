@@ -76,6 +76,11 @@ def test_each_configuration_is_the_programs(config):
     assert cfg.d_model == cfg_file["hidden_size"]
     assert cfg.vocab == cfg_file["vocab_size"]
     assert cfg.dtype == cfg_file["dtype"]
+    # the CPU tests' sizes are the program's ``reduced()`` model
+    small = dict(cfg_file, **cfg_file["cpu_sizes"], registry_reduced=True)
+    red = olaf.program_config(small)
+    olaf.check_layout(small, red)
+    assert red.dtype == small["dtype"] == "float32"
 
 
 @pytest.mark.parametrize("reader", sorted(
@@ -105,7 +110,7 @@ def test_the_default_reference_model_is_unchanged(name):
     import torch
 
     from perfbench.reference import data, flops, lm
-    from perfbench_testkit import REDUCED, SEED, few_threads
+    from perfbench_testkit import SEED, few_threads
     n, train_flops, digest, loss = FROZEN[name]
     cfg = json.loads((ROOT / "perfbench" / "configs" / f"{name}.json")
                      .read_text())
@@ -114,7 +119,7 @@ def test_the_default_reference_model_is_unchanged(name):
                       / f"{name}.train-long.json").read_text())["job"]["seq"]
     assert lm.n_params(cfg) == n == cfg["parameters"]
     assert flops.train_flops_per_token(cfg, seq) == train_flops
-    red = dict(cfg, **REDUCED[name])
+    red = dict(cfg, **cfg["cpu_sizes"])
     P = lm.draw_params(red, SEED, torch.device("cpu"))
     h = hashlib.sha256()
     for k in sorted(P):
