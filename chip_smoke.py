@@ -55,7 +55,10 @@ meta likes and resumed bit for bit as ``[train]``'s uninterrupted sync
 run; a DTensor round trip over a one-rank NCCL mesh).
 The attention kernels are held to their plain versions in both the
 folded (BH, S, Dh) layout and the model's strided (B, S, H, Dh) one, and
-timed beside SDPA. It prints each kernel's ptxas registers and spills,
+timed beside SDPA; the flash backward (``[flash-bwd]``) at a smollm-360m
+gradient's shape and the families' Dh 128 shapes, beside SDPA's backward,
+and the training runs count its launches (one forward per attention layer,
+two under remat ``full``, and one backward). It prints each kernel's ptxas registers and spills,
 counts each wrapper's device kernels per call in a profiler trace (one,
 and no other device operation, for each OLAF wrapper; one for each
 attention kernel; or it fails), times the kernels, and the fused
@@ -99,8 +102,9 @@ from repro_torch.core import hybrid, netsim, topology, vecsim  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,  # noqa: E402
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_backward_cuda, flash_attention_backward_plain,
+    flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
                                               olaf_combine_plain)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
@@ -439,6 +443,7 @@ COUNTED = {"olaf_step": olaf_step_cuda, "olaf_combine": olaf_combine_cuda,
            "olaf_enqueue": olaf_enqueue_cuda,
            "olaf_robust_combine": olaf_robust_combine_cuda,
            "flash_attention": flash_attention_cuda,
+           "flash_attention_backward": flash_attention_backward_cuda,
            "decode_attention": decode_attention_cuda}
 
 
@@ -1610,14 +1615,21 @@ def flash_kw(shape):
     return dict(causal=shape[4], window=shape[5], q_offset=shape[6])
 
 
-def flash_plain_sliced(q, k, v, **kw):
-    """The plain version over slices of the batch, so its dense scores fit
-    (either layout: a (B, S, H, Dh) slice holds H heads)."""
+def plain_sliced(fn, q, k, *rest, **kw):
+    """A plain attention function over slices of the batch (the first axis
+    of every operand), so its dense scores fit (either layout: a (B, S, H,
+    Dh) slice holds H heads); a tuple result is joined part by part."""
     heads = q.shape[2] if q.dim() == 4 else 1
     per = max(1, PLAIN_SCORE_BYTES // (4 * heads * q.shape[1] * k.shape[1]))
-    return torch.cat([flash_attention_plain(q[i:i + per], k[i:i + per],
-                                            v[i:i + per], **kw)
-                      for i in range(0, q.shape[0], per)])
+    parts = [fn(*(x[i:i + per] for x in (q, k, *rest)), **kw)
+             for i in range(0, q.shape[0], per)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def flash_plain_sliced(q, k, v, **kw):
+    return plain_sliced(flash_attention_plain, q, k, v, **kw)
 
 
 def flash_cost(shape, itemsize: int):
@@ -1809,6 +1821,144 @@ def time_attention(checked, reps: int):
             f"plain {plain:.4f} ms SDPA {library:.4f} ms bound {bound:.6f} ms "
             f"({by}: {nbytes} B, {nops} operations); {rate}, "
             f"{100 * bound / ms:.1f}% of the bound, {ms / library:.2f}x SDPA")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the flash backward: kernels against the plain backward, bound, SDPA's
+# ---------------------------------------------------------------------------
+# name: (B, Sq, Sk, H, Dh, causal, window, q_offset); q a strided view of a
+# fused projection, k and v expanded from FLASH_BWD_KV heads as ``expand_kv``
+# gives them
+FLASH_BWD_SHAPES = {
+    "train": (16, 2048, 2048, 15, 64, True, 0, 0),  # a smollm-360m gradient
+    "f/model": (4, 512, 512, 48, 128, True, 0, 0),  # grok-1's prefill
+    "h128/window": (2, 2304, 2304, 16, 128, True, 2048, 0),  # Dh 128, a window
+    "d/model": (4, 256, 768, 16, 128, True, 0, 512),  # a q offset, ragged tiles
+}
+FLASH_BWD_KV = {"train": 5, "f/model": 8, "h128/window": 1}
+# each gradient within 1e-2 of its largest element: both sides round P and
+# dS to bf16 from float32 values summed in other orders, so an element may
+# land a bf16 ulp (2^-8 relative) apart, and the sums over keys of those
+# differences stay inside 1e-2 of the largest element (0.0046 at most, dK
+# at the train shape; 0.0032 over 14 smaller shapes); the output's
+# log-sum-exp within 1e-5
+FLASH_BWD_TOL = 1e-2
+FLASH_BWD_LSE_TOL = 1e-5
+
+
+def flash_backward_cost(shape):
+    """(bytes, operations) of one backward call: q, k, v, out and dout read
+    and dq, dk, dv written once (bf16), lse read; seven products of 2·Dh
+    operations per live (query, key) pair."""
+    B, Sq, Sk, H, Dh = shape[:5]
+    _, nops = flash_cost(folded_shape(shape), 2)
+    nbytes = 2 * Dh * B * H * (4 * Sq + 4 * Sk) + 4 * B * H * Sq
+    return nbytes, nops * 7 // 2  # flash_cost counts the forward's two
+
+
+def flash_backward_library(q, k, v, shape):
+    """SDPA's backward on the same inputs as (B, H, S, Dh) views (a yardstick
+    only: the port never calls it): the graph of one forward, then the
+    gradient of its output, timed alone."""
+    _, Sq, Sk, _, _, causal, window, q_offset = shape
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    if causal and not window and not q_offset and Sq == Sk:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    g = torch.randn_like(o)
+    return lambda _: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True)
+
+
+def flash_backward_phase(dev, gen, reps: int = 5) -> dict:
+    """The backward kernels (pre-pass, dK/dV, dQ) at the train shape and the
+    families' Dh 128 shapes, bf16: against the plain backward from the
+    kernel's own output and log-sum-exp (``FLASH_BWD_TOL``), bit for bit on
+    a second call, three device kernels and nothing else per call; then
+    timed beside the bound, the plain version and SDPA's backward."""
+    rows = {}
+    for name, shape in FLASH_BWD_SHAPES.items():
+        B, Sq, Sk, H, Dh, causal, window, q_offset = shape
+        kw = flash_kw(folded_shape(shape))
+        q, k, v = flash_model_inputs(gen, dev, (B, Sq, Sk, H, Dh), torch.bfloat16,
+                                     FLASH_BWD_KV.get(name))
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        dout = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
+        got = flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw)
+        again = flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"flash backward {name}: two calls differ")
+        want = plain_sliced(flash_attention_backward_plain, q, k, v, out, lse,
+                            dout, **kw)
+        plain_out, plain_lse = plain_sliced(flash_attention_plain, q, k, v,
+                                            return_lse=True, **kw)
+        live = torch.isfinite(plain_lse)
+        require(torch.equal(torch.isfinite(lse), live)
+                and float((lse - plain_lse)[live].abs().max()) <= FLASH_BWD_LSE_TOL,
+                f"flash {name}: the log-sum-exp differs from the plain one")
+        errs = {}
+        for n, a, b in zip(("dq", "dk", "dv"), got, want):
+            scale = float(b.float().abs().max())
+            errs[n] = float((a.float() - b.float()).abs().max()) / scale
+            require(bool(torch.isfinite(a).all()) and errs[n] <= FLASH_BWD_TOL,
+                    f"flash backward {name} {n}: off by {errs[n]:.3g} of its "
+                    f"largest element")
+        del want, plain_out, plain_lse
+        x = (q, k, v, out, lse, dout)
+        mine, other = launches_per_call(
+            lambda a: flash_attention_backward_cuda(*a, **kw), lambda: x,
+            ("flash_bwd_",))
+        require(mine == 3 and other == 0, f"flash backward {name}: {mine:g} "
+                f"kernels and {other:g} other device operations per call")
+        kernel = time_ms(lambda a: flash_attention_backward_cuda(*a, **kw),
+                         lambda: x, reps)
+        plain = time_ms(lambda a: plain_sliced(flash_attention_backward_plain,
+                                               *a, **kw), lambda: x, 2)
+        library = time_ms(flash_backward_library(q, k, v, shape), lambda: None,
+                          reps)
+        fwd_lse = time_ms(lambda a: flash_attention_cuda(*a[:3], return_lse=True,
+                                                         **kw), lambda: x, reps)
+        fwd = time_ms(lambda a: flash_attention_cuda(*a[:3], **kw), lambda: x, reps)
+        fwd_plain = time_ms(lambda a: plain_sliced(
+            flash_attention_plain, *a[:3], return_lse=True, **kw), lambda: x, 2)
+        fwd_library = time_ms(flash_library(q, k, v, folded_shape(shape)),
+                              lambda: None, reps)
+        kernel2 = time_ms(lambda a: flash_attention_backward_cuda(*a, **kw),
+                          lambda: x, reps)
+        nbytes, nops = flash_backward_cost(shape)
+        bound, by = attn_bound_ms(nbytes, nops, torch.bfloat16)
+        ms = min(kernel, kernel2)
+        rows[name] = dict(shape=shape, ms=ms, ms_runs=[kernel, kernel2],
+                          plain_ms=plain, library_ms=library, bound_ms=bound,
+                          bound_by=by, bytes=nbytes, ops=nops,
+                          share_of_bound=bound / ms, vs_library=ms / library,
+                          rel_err=errs, forward_ms=fwd, forward_lse_ms=fwd_lse,
+                          forward_plain_ms=fwd_plain,
+                          forward_library_ms=fwd_library,
+                          kernels_per_call=mine)
+        log(f"[flash-bwd] {name} B={B} Sq={Sq} Sk={Sk} H={H} Dh={Dh} causal="
+            f"{causal} window={window} q_offset={q_offset} bf16: matches the "
+            f"plain backward (max |err| over the largest element: "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f"; bound {FLASH_BWD_TOL}), 2 calls bitwise equal, {mine:g} "
+            f"kernels and {other:g} other device operations per call; kernel "
+            f"{ms:.4f} ms (runs {kernel:.4f}, {kernel2:.4f}) plain {plain:.4f} "
+            f"ms SDPA backward {library:.4f} ms bound {bound:.6f} ms ({by}: "
+            f"{nbytes} B, {nops} operations); {nops / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * bound / ms:.1f}% of the bound, {ms / library:.2f}x SDPA; "
+            f"forward {fwd:.4f} ms, with the log-sum-exp {fwd_lse:.4f} ms "
+            f"(its plain version {fwd_plain:.4f} ms, SDPA {fwd_library:.4f} ms)")
+        del x, got, again, q, k, v, out, lse, dout
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2082,6 +2232,16 @@ def train_phase(dev) -> dict:
             f"{steps} PS steps, one each per step expected")
     require(len(losses) == steps and all(math.isfinite(l) for l in losses),
             f"train: losses {losses}")
+    # every attention layer of every gradient on the flash pair: the forward
+    # kernel in the forward and again in remat's recompute, one backward
+    n_layers, n_grads = tr.cfg.n_layers, len(grad_ms)
+    fwd_per_grad = n_layers * (2 if tr.cfg.remat else 1)
+    require(counts["flash_attention"] == fwd_per_grad * n_grads
+            and counts["flash_attention_backward"] == n_layers * n_grads,
+            f"train: {counts['flash_attention']} flash forward and "
+            f"{counts['flash_attention_backward']} backward launches in "
+            f"{n_grads} gradients of {n_layers} layers; {fwd_per_grad} and "
+            f"{n_layers} a gradient expected")
     require(sum(c for _, _, c in tr.log_rows) > 0, "train: nothing applied")
     require(all(bool(torch.isfinite(x).all()) for x in params)
             and bool(torch.isfinite(tr.state.queue.payload).all()),
@@ -2095,8 +2255,10 @@ def train_phase(dev) -> dict:
         f"on, remat {tr.cfg.remat_policy if tr.cfg.remat else 'off'}; "
         f"{steps} steps in {tr.wall:.3f} s = {steps / tr.wall:.3f} "
         f"steps/s; olaf_step launches {counts['olaf_step']}, "
-        f"olaf_robust_combine launches {counts['olaf_robust_combine']} "
-        f"(counted from 0); "
+        f"olaf_robust_combine launches {counts['olaf_robust_combine']}, "
+        f"flash_attention {counts['flash_attention']} and its backward "
+        f"{counts['flash_attention_backward']} in {n_grads} gradients "
+        f"({fwd_per_grad} and {n_layers} a gradient; counted from 0); "
         f"peak memory {peak} B ({peak / 2**30:.2f} GiB; {held} B of it "
         f"held before the run, so the run's own {(peak - held) / 2**30:.2f} "
         f"GiB); loss first "
@@ -2429,12 +2591,17 @@ def remat_phase(dev) -> dict:
     base = runs["none"]
     for policy in REMAT_POLICIES[1:]:
         r = runs[policy]
-        require(counts[policy] == counts["none"]
+        same = {k: v for k, v in counts[policy].items() if k != "flash_attention"}
+        require(same == {k: v for k, v in counts["none"].items()
+                         if k != "flash_attention"}
+                and counts[policy]["flash_attention"]
+                == 2 * counts["none"]["flash_attention"] > 0
                 and r["combined"] == base["combined"]
                 and r["totals"] == base["totals"]
                 and all(torch.equal(v, base["queue"][f])
                         for f, v in r["queue"].items()),
-                f"remat {policy}: counters differ from none")
+                f"remat {policy}: counters differ from none (the flash "
+                f"forward twice as often: the recompute)")
         require(np.allclose(r["losses"], base["losses"], rtol=REMAT_TOL,
                             atol=0), f"remat {policy}: losses {r['losses']} "
                 f"vs {base['losses']}")
@@ -2646,6 +2813,10 @@ def dryrun_phase(dev, smi: str) -> dict:
                 f"({(peak - predicted) / 2**30:+.2f} GiB, "
                 f"{(peak - predicted) / peak:+.1%} of the measured); "
                 f"memory_allocated after it {allocated} B")
+            # the count follows aten ops, and the meta step takes the plain
+            # routes: so does the counted and timed step on the card (the
+            # flash pair's ctypes launches would be a gap in the count)
+            cfg = dataclasses.replace(cfg, attn_impl="full")
             step_args = (res.params, res.opt_state, cap.batch)
             card = counted_train_step(*step_args, cfg, opt)
             torch.cuda.synchronize()
@@ -2942,7 +3113,14 @@ def ckpt_phase(dev, smi: str, uninterrupted) -> dict:
         rt = dtensor_round_trip(state, d, dev)
     require(rt["plain_bitwise"] and rt["placed_bitwise"]
             and rt["placements_equal"], f"ckpt: DTensor round trip {rt}")
-    require(not any(counts.values()), f"ckpt: kernel launches {counts}")
+    # no OLAF kernel in a sync run; the flash pair on every attention layer
+    # of its 3 gradients (1 saved, 2 resumed), the forward twice (remat)
+    n_attn = get_config(CKPT_ARCH).n_layers * steps
+    require(counts["flash_attention"] == 2 * n_attn
+            and counts["flash_attention_backward"] == n_attn
+            and not any(v for k, v in counts.items()
+                        if not k.startswith("flash_attention")),
+            f"ckpt: kernel launches {counts}")
     save_s, restore_s = saves.seconds, restores.seconds[0]
     log(f"[ckpt] smollm-360m sync state at batch 32 seq 256 ({smi}): "
         f"{n_leaves} leaves, {nbytes} B as npz ({nbytes / 2**30:.2f} GiB, "
@@ -3665,6 +3843,8 @@ def main() -> int:
     fwd_err = max(check_forward(name, a) for name, a in fwd_cases.items())
     # flash_attention and decode_attention at every listed shape, bf16 and f32
     attn_checked = check_attention(dev, gen)
+    # the backward kernels at the train shape and the Dh 128 shapes
+    flash_bwd = flash_backward_phase(dev, gen)
     # device kernels per wrapper call, as the profiler traces them (the
     # wrapper's count adds one per call by construction and cannot show it),
     # before any large trace of the paths, after which the tracer loses
@@ -4177,6 +4357,31 @@ def main() -> int:
         "flash", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:83",
         "BH=120 Sq=Sk=512 Dh=64 causal bf16 (the smollm-360m prefill, B=8)")
+    bwd_head = flash_bwd["train"]
+    flash_bwd_entry = dict(
+        name="flash_attention_backward", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="none (repro's Pallas flash kernel is forward-only; repro "
+                 "trains through XLA's dense attention)",
+        launches=train["counts"]["flash_attention_backward"],
+        max_rel_err=max(e for r in flash_bwd.values()
+                        for e in r["rel_err"].values()),
+        ms=bwd_head["ms"], plain_ms=bwd_head["plain_ms"],
+        bound_ms=bwd_head["bound_ms"], bound_by=bwd_head["bound_by"],
+        library_ms=bwd_head["library_ms"],
+        library_call="the backward of torch.nn.functional."
+                     "scaled_dot_product_attention",
+        bytes=bwd_head["bytes"], ops=bwd_head["ops"],
+        cuda_launches_per_call=bwd_head["kernels_per_call"],
+        shape="B=16 S=2048 H=15 Dh=64 causal bf16 (a smollm-360m gradient)",
+        forward_ms=bwd_head["forward_ms"],
+        forward_lse_ms=bwd_head["forward_lse_ms"],
+        shapes={n: {k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bytes",
+            "ops", "rel_err", "share_of_bound", "vs_library", "forward_ms",
+            "forward_lse_ms", "forward_plain_ms", "forward_library_ms")}
+            for n, r in flash_bwd.items()},
+        launches_by_path=by_path("flash_attention_backward"))
     decode_entry = attn_entry(
         "decode", "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:68",
@@ -4194,7 +4399,8 @@ def main() -> int:
         {k: ckpt[k] for k in ("bytes", "save_s", "restore_s", "dtensor")}))
     print(smi, flush=True)
     print(json.dumps({"kernels": [entry, combine_entry, enqueue_entry,
-                                  robust_entry, flash_entry, decode_entry]}),
+                                  robust_entry, flash_entry,
+                                  flash_bwd_entry, decode_entry]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,32 @@
 //   port holds float32 attention to, so float32 keeps the first kernel:
 //   one block per 64-row q tile, K/V tiles staged in shared memory, each
 //   q row owned by Dh/32 neighbouring threads; bound by the float32 rate.
+//   On request the bf16 route also writes each row's log-sum-exp, m + log l
+//   in natural units (float32, (B, H, Sq)), for the backward.
+//
+// The backward (bf16, Dh 64 or 128; flash_bwd_prep, flash_bwd_dkdv,
+// flash_bwd_dq) ports no TPU kernel: repro's Pallas flash kernel is
+// forward-only and repro trains through XLA's dense attention. It was added
+// so that training need not materialise the (B, H, S, S) scores, their
+// float32 copies and softmax passes, which took about 80% of a SmolLM
+// gradient at S = 2048. Bound: seven products of 2·Dh operations per live
+// (query, key) pair (S and dP recomputed in both kernels, dV, dK, dQ) on
+// about Dh/2 operations per byte, above the card's ~295 bf16 operations
+// per byte at training lengths, so the bf16 tensor-core rate. Design: the
+// log-sum-exp saved by the forward makes P a pointwise function of S, so
+// no kernel needs a second pass over a row. A pre-pass turns it into
+// lse·log2 e and computes delta = Σ_d dO∘O per row. Then one block per
+// (128 keys, b·h) keeps K and V in shared memory, walks only the live q
+// tiles and accumulates dK and dV in registers; one block per (128 q rows,
+// b·h) keeps Q and dO and walks the live K/V tiles for dQ. Every gradient
+// row is owned by one block, so there are no atomics and the same inputs
+// give the same bits. Both bring their tiles through a TMA ring with
+// mbarriers, run every product with wgmma (float32 accumulators, P and dS
+// rounded to bf16 as register A operands, as autograd of the dense route
+// rounds them) and mask only the diagonal, window-edge and ragged tiles.
+// They run two warpgroups and no producer warpgroup, so ptxas may give a
+// thread 255 registers: the dK and dV accumulators and the S and dP tiles
+// live in registers at once.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +87,37 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // (B, H, Sq) or null: each row's log-sum-exp (bf16 route only)
+};
+
+// Mirrors _BwdArgs in repro_torch/kernels/flash_attention.py. q/o/dout/dq
+// (B,Sq,H,Dh), k/v/dk/dv (B,Sk,H,Dh), all bf16, strides in elements; lse
+// (B,H,Sq) float32 from the forward; lse2 and delta (B·H, sq_pad) float32
+// scratch that the pre-pass fills.
+struct FlashBwdArgs {
+  int B, H, Sq, Sk, Dh;
+  int causal, window, q_offset;
+  int sq_pad;  // Sq rounded up to 128: the row stride of lse2 and delta
+  float scale;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long dout_sb, dout_ss, dout_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  void* dq;
+  void* dk;
+  void* dv;
+  float* lse2;   // lse · log2 e
+  float* delta;  // Σ_d dout ∘ o
 };
 
 namespace {
@@ -425,10 +482,21 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 32, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 32, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, acc);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
   else wgmma_ss_n128(d, da, db, acc);
 }
 template <int N>
@@ -617,6 +685,11 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
+    if (a.lse && lane % 4 == 0) {  // m + log l in natural units; −inf if no live key
+      float* lse = a.lse + static_cast<long long>(blockIdx.y) * a.Sq;
+      if (row0 < a.Sq) lse[row0] = m0 * a.scale + logf(l0);
+      if (row0 + 8 < a.Sq) lse[row0 + 8] = m1 * a.scale + logf(l1);
+    }
     const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
     __nv_bfloat16* o0 = out + static_cast<long long>(row0) * a.o_ss + 2 * (lane % 4);
@@ -655,10 +728,10 @@ int encode_tiled(EncodeTiled* fn) {
 
 // a (B, S, H, Dh) bf16 tensor as a 4-D map (Dh, S, H, B), boxes of 64
 // columns x `rows` rows, 128-byte swizzle; rows past S read as zeros
-int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, const FlashArgs& a,
-             int S, long long sb, long long ss, long long sh, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.Dh), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(a.H), static_cast<cuuint64_t>(a.B)};
+int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int Dh, int S, int H,
+             int B, long long sb, long long ss, long long sh, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
@@ -678,12 +751,493 @@ int launch_bf16(const FlashArgs& a, cudaStream_t stream) {
   int rc = encode_tiled(&enc);
   if (rc) return rc;
   CUtensorMap tq, tk, tv;
-  if ((rc = make_map(enc, &tq, a.q, a, a.Sq, a.q_sb, a.q_ss, a.q_sh, kWgBQ))) return rc;
-  if ((rc = make_map(enc, &tk, a.k, a, a.Sk, a.k_sb, a.k_ss, a.k_sh, G::BK))) return rc;
-  if ((rc = make_map(enc, &tv, a.v, a, a.Sk, a.v_sb, a.v_ss, a.v_sh, G::BK))) return rc;
+  if ((rc = make_map(enc, &tq, a.q, DH, a.Sq, a.H, a.B, a.q_sb, a.q_ss, a.q_sh, kWgBQ)))
+    return rc;
+  if ((rc = make_map(enc, &tk, a.k, DH, a.Sk, a.H, a.B, a.k_sb, a.k_ss, a.k_sh, G::BK)))
+    return rc;
+  if ((rc = make_map(enc, &tv, a.v, DH, a.Sk, a.H, a.B, a.v_sb, a.v_ss, a.v_sh, G::BK)))
+    return rc;
   if ((rc = opt_in_smem<flash_wgmma<DH>>(G::SMEM))) return rc;
   const dim3 grid((a.Sq + kWgBQ - 1) / kWgBQ, a.B * a.H);
   flash_wgmma<DH><<<grid, kWgThreads, G::SMEM, stream>>>(tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// the backward (bf16, Dh 64 or 128): a pre-pass, then the dK/dV and dQ kernels
+// ---------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBwdBK = 128;   // keys per dK/dV block: two consumer warpgroups
+constexpr int kPadRows = 128; // sq_pad's granularity (the dQ block's rows)
+// Two warpgroups and no producer of their own: ptxas gives a kernel one
+// register count, and each of the SM's four quarters holds 16,384 registers
+// for the warps placed on it, so 8 warps may take 255 registers a thread
+// where a third warpgroup (or warp) caps every thread at 168 and the
+// accumulators spill. Thread 0 starts the loads, one tile ahead.
+constexpr int kBwdThreads = 256;
+// ring depth of both backward kernels: the load of tile i + 1 goes out at
+// the top of tile i, into the stage that tile i − 2 gave back, so one
+// warpgroup may run up to a tile ahead of the other
+constexpr int kBwdStages = 3;
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// one warp per row (b·h, i < sq_pad): delta = Σ_d dout·o in float32 and
+// lse2 = lse·log2 e; rows past Sq get 0
+template <int DH>
+__global__ void __launch_bounds__(256) flash_bwd_prep(FlashBwdArgs a) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.x * 8 + warp;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  float d = 0.f, l2 = 0.f;
+  if (i < a.Sq) {
+    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o) + b * a.o_sb +
+                             h * a.o_sh + i * a.o_ss;
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(a.dout) + b * a.dout_sb +
+                             h * a.dout_sh + i * a.dout_ss;
+#pragma unroll
+    for (int c = 2 * lane; c < DH; c += 64) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + c));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g + c));
+      d = fmaf(x.x, y.x, fmaf(x.y, y.y, d));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    l2 = a.lse[static_cast<long long>(bh) * a.Sq + i] * kLog2e;
+  }
+  if (lane == 0 && i < a.sq_pad) {
+    a.delta[static_cast<long long>(bh) * a.sq_pad + i] = d;
+    a.lse2[static_cast<long long>(bh) * a.sq_pad + i] = l2;
+  }
+}
+
+template <int DH>
+struct DkvTile {
+  // q rows per ring stage: dV and dK take DH registers a thread, Sᵀ, dPᵀ and
+  // their bf16 copies 1.5·BQ
+  static constexpr int BQ = DH == 64 ? 64 : 32;
+  static constexpr int PANELS = DH / kPanel;
+  static constexpr int KV_PANEL = kBwdBK * 128;  // bytes of one K or V panel
+  static constexpr int KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int Q_PANEL = BQ * 128;       // bytes of one Q or dO panel
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int ROW_BYTES = BQ * 4;       // one stage's lse2 (or delta)
+  static constexpr int TILES = 2 * KV_BYTES + 2 * kBwdStages * Q_BYTES;
+  // + lse2/delta rows; + barriers; + 1024 to align the tiles to the swizzle's period
+  static constexpr int SMEM = TILES + 2 * kBwdStages * ROW_BYTES + 64 + 1024;
+};
+
+// the barriers of a backward kernel's ring: full[s], empty[s], then the one
+// of the operands loaded once
+__device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) { return bars + 8 * s; }
+__device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
+  return bars + 8 * (kBwdStages + s);
+}
+__device__ __forceinline__ uint32_t bar_once(uint32_t bars) { return bars + 16 * kBwdStages; }
+
+__device__ __forceinline__ void init_bwd_bars(uint32_t bars) {
+  for (int s = 0; s < kBwdStages; ++s) {
+    mbar_init(bar_full(bars, s), 1);   // the producer
+    mbar_init(bar_empty(bars, s), 8);  // 8 consumer warps
+  }
+  mbar_init(bar_once(bars), 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// a consumer warp gives its stage back to the producer
+__device__ __forceinline__ void release(uint32_t bars, int s, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar_empty(bars, s));
+}
+
+// dK and dV of 128 keys of one (b, h): K and V stay in shared memory, the
+// live q tiles of BQ rows (Q, dO, lse2, delta) come through the ring. Per
+// tile each consumer warpgroup (64 keys) forms Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+// (float32), Pᵀ = exp2(Sᵀ·scale·log2 e − lse2) and dSᵀ = Pᵀ∘(dPᵀ − delta),
+// then dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ rounded to bf16 as the
+// register A operand. dK is scaled once at the end.
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               FlashBwdArgs a) {
+  using G = DkvTile<DH>;
+  constexpr int BQ = G::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base;
+  const uint32_t sV = sK + G::KV_BYTES;
+  const uint32_t sQ = sV + G::KV_BYTES;                  // kBwdStages Q tiles
+  const uint32_t sO = sQ + kBwdStages * G::Q_BYTES;      // kBwdStages dO tiles
+  const uint32_t sL = sO + kBwdStages * G::Q_BYTES;      // kBwdStages lse2 rows
+  const uint32_t sD = sL + kBwdStages * G::ROW_BYTES;    // kBwdStages delta rows
+  const uint32_t bars = sD + kBwdStages * G::ROW_BYTES;
+
+  // heaviest key tiles first: under a causal mask the first see most queries
+  const int k0 = blockIdx.x * kBwdBK;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int n_qt = (a.Sq + BQ - 1) / BQ;
+  int qt_lo = 0, qt_hi = n_qt;
+  if (a.causal) qt_lo = min(n_qt, max(0, k0 - a.q_offset) / BQ);
+  if (a.window > 0) {  // the last q row some key of the tile is live for
+    const int last = k0 + kBwdBK - 2 + a.window - a.q_offset;
+    qt_hi = last < 0 ? 0 : min(n_qt, last / BQ + 1);
+  }
+  const int n_tiles = max(0, qt_hi - qt_lo);
+
+  if (threadIdx.x == 0) init_bwd_bars(bars);
+  __syncthreads();
+
+  const float* lse2 = a.lse2 + static_cast<long long>(bh) * a.sq_pad;
+  const float* delta = a.delta + static_cast<long long>(bh) * a.sq_pad;
+  // tile i's Q, dO, lse2 and delta into its stage, once every warp has given
+  // back the tile kBwdStages before it (thread 0)
+  auto load = [&](int i) {
+    const int s = i % kBwdStages;
+    const uint32_t full = bar_full(bars, s);
+    mbar_wait(bar_empty(bars, s), ((i / kBwdStages) & 1) ^ 1);
+    mbar_expect_tx(full, 2 * G::Q_BYTES + 2 * G::ROW_BYTES);
+    const int q0 = (qt_lo + i) * BQ;
+#pragma unroll
+    for (int p = 0; p < G::PANELS; ++p) {
+      tma_load(sQ + s * G::Q_BYTES + p * G::Q_PANEL, &tq, full, p * kPanel, q0, h, b);
+      tma_load(sO + s * G::Q_BYTES + p * G::Q_PANEL, &tdo, full, p * kPanel, q0, h, b);
+    }
+    bulk_load(sL + s * G::ROW_BYTES, lse2 + q0, G::ROW_BYTES, full);
+    bulk_load(sD + s * G::ROW_BYTES, delta + q0, G::ROW_BYTES, full);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_once(bars), 2 * G::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < G::PANELS; ++p) {
+      tma_load(sK + p * G::KV_PANEL, &tk, bar_once(bars), p * kPanel, k0, h, b);
+      tma_load(sV + p * G::KV_PANEL, &tv, bar_once(bars), p * kPanel, k0, h, b);
+    }
+    if (n_tiles > 0) load(0);
+  }
+  {
+    // ---- 64 keys per warpgroup ----
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int kr0 = k0 + 64 * wg + 16 * warp + lane / 4;  // and kr0 + 8
+    const int wk_lo = k0 + 64 * wg, wk_hi = wk_lo + 63;
+    const float sl2 = a.scale * kLog2e;
+    const float* rows = reinterpret_cast<const float*>(smem_raw + (sL - raw));
+    float dv[DH / 2], dk[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dv[i] = dk[i] = 0.f;
+    mbar_wait(bar_once(bars), 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kBwdStages;
+      const int q0 = (qt_lo + i) * BQ;
+      const int qa_lo = q0 + a.q_offset, qa_hi = qa_lo + BQ - 1;
+      if (threadIdx.x == 0 && i + 1 < n_tiles) load(i + 1);
+      mbar_wait(bar_full(bars, s), (i / kBwdStages) & 1);
+      // every (key, query) pair of this warpgroup's part of the tile masked
+      const bool dead = wk_lo >= a.Sk || (a.causal && qa_hi < wk_lo) ||
+                        (a.window > 0 && wk_hi <= qa_lo - a.window);
+      if (dead) {
+        release(bars, s, lane);
+        continue;
+      }
+      float st[BQ / 2], dpt[BQ / 2];
+      uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss<BQ>(st, sw128_desc(sK + (kk / 4) * G::KV_PANEL + wg * 64 * 128 + (kk % 4) * 32,
+                                    16, 1024),
+                     sw128_desc(sQ + s * G::Q_BYTES + (kk / 4) * G::Q_PANEL + (kk % 4) * 32, 16,
+                                1024),
+                     kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss<BQ>(dpt, sw128_desc(sV + (kk / 4) * G::KV_PANEL + wg * 64 * 128 + (kk % 4) * 32,
+                                     16, 1024),
+                     sw128_desc(sO + s * G::Q_BYTES + (kk / 4) * G::Q_PANEL + (kk % 4) * 32, 16,
+                                1024),
+                     kk > 0);
+      wgmma_commit();
+
+      // per-element masks only on the diagonal, window-edge, Sk- and Sq-edge tiles
+      const bool edge = wk_hi >= a.Sk || q0 + BQ > a.Sq || (a.causal && qa_lo < wk_hi) ||
+                        (a.window > 0 && wk_lo <= qa_hi - a.window);
+      const float* l2 = rows + s * BQ;
+      const float* dl = rows + kBwdStages * BQ + s * BQ;
+      wgmma_wait0();
+      fence_regs(st);
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * (lane % 4) + (e & 1);
+          const int key = e < 2 ? kr0 : kr0 + 8;
+          const int qa = q0 + c + a.q_offset;
+          const bool ok = !edge || (key < a.Sk && q0 + c < a.Sq && (!a.causal || key <= qa) &&
+                                    (a.window <= 0 || key > qa - a.window));
+          st[4 * j + e] = ok ? exp2f(fmaf(st[4 * j + e], sl2, -l2[c])) : 0.f;  // Pᵀ
+        }
+        // the Sᵀ fragment of queries 16kk..16kk+15 is the A fragment of Pᵀ·dO
+        pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(st[4 * j], st[4 * j + 1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
+      }
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<DH>(dv, pa[kk], sw128_desc(sO + s * G::Q_BYTES + kk * 16 * 128, G::Q_PANEL, 1024));
+      // dSᵀ while Pᵀ·dO runs
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = st[4 * j + e] * (dpt[4 * j + e] - dl[8 * j + 2 * (lane % 4) + (e & 1)]);
+        sa[j / 2][(j % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        sa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<DH>(dk, sa[kk], sw128_desc(sQ + s * G::Q_BYTES + kk * 16 * 128, G::Q_PANEL, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dv);
+      fence_regs(dk);
+      release(bars, s, lane);
+    }
+
+    const long long r0 = kr0, r1 = kr0 + 8;
+    __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(a.dv) + b * a.dv_sb + h * a.dv_sh +
+                         2 * (lane % 4);
+    __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(a.dk) + b * a.dk_sb + h * a.dk_sh +
+                         2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      if (r0 < a.Sk) {
+        *reinterpret_cast<uint32_t*>(dvp + r0 * a.dv_ss + 8 * j) = pack_bf16(dv[4 * j], dv[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(dkp + r0 * a.dk_ss + 8 * j) =
+            pack_bf16(dk[4 * j] * a.scale, dk[4 * j + 1] * a.scale);
+      }
+      if (r1 < a.Sk) {
+        *reinterpret_cast<uint32_t*>(dvp + r1 * a.dv_ss + 8 * j) =
+            pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+        *reinterpret_cast<uint32_t*>(dkp + r1 * a.dk_ss + 8 * j) =
+            pack_bf16(dk[4 * j + 2] * a.scale, dk[4 * j + 3] * a.scale);
+      }
+    }
+  }
+}
+
+template <int DH>
+struct DqTile {
+  static constexpr int BK = DH == 64 ? 128 : 64;  // keys per K/V tile
+  static constexpr int PANELS = DH / kPanel;
+  static constexpr int Q_PANEL = kWgBQ * 128;     // bytes of one Q or dO panel
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int KV_PANEL = BK * 128;       // bytes of one K or V panel
+  static constexpr int KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int TILES = 2 * Q_BYTES + 2 * kBwdStages * KV_BYTES;
+  static constexpr int SMEM = TILES + 64 + 1024;
+};
+
+// dQ of 128 q rows of one (b, h): Q and dO stay in shared memory, the live
+// K/V tiles come through the ring as in the forward. Per tile each
+// warpgroup (64 rows) forms S = Q·Kᵀ and dP = dO·Vᵀ, P from the row's lse2,
+// dS = P∘(dP − delta), and dQ += dS·K with dS rounded to bf16. dQ is scaled
+// once at the end.
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+             FlashBwdArgs a) {
+  using G = DqTile<DH>;
+  constexpr int BK = G::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sO = sQ + G::Q_BYTES;
+  const uint32_t sK = sO + G::Q_BYTES;                  // kBwdStages K tiles
+  const uint32_t sV = sK + kBwdStages * G::KV_BYTES;    // kBwdStages V tiles
+  const uint32_t bars = sV + kBwdStages * G::KV_BYTES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest q tiles first
+  const int q0 = qt * kWgBQ;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int qa_lo = q0 + a.q_offset;
+  const int qa_hi = min(q0 + kWgBQ, a.Sq) - 1 + a.q_offset;
+  int kt_lo = 0, kt_hi = (a.Sk + BK - 1) / BK;
+  if (a.causal) kt_hi = min(kt_hi, qa_hi / BK + 1);
+  if (a.window > 0 && qa_lo - a.window + 1 > 0) kt_lo = (qa_lo - a.window + 1) / BK;
+  const int n_tiles = max(0, kt_hi - kt_lo);
+
+  if (threadIdx.x == 0) init_bwd_bars(bars);
+  __syncthreads();
+
+  // tile i's K and V into its stage, once every warp has given back the
+  // tile kBwdStages before it (thread 0)
+  auto load = [&](int i) {
+    const int s = i % kBwdStages;
+    const uint32_t full = bar_full(bars, s);
+    mbar_wait(bar_empty(bars, s), ((i / kBwdStages) & 1) ^ 1);
+    mbar_expect_tx(full, 2 * G::KV_BYTES);
+    const int k0 = (kt_lo + i) * BK;
+#pragma unroll
+    for (int p = 0; p < G::PANELS; ++p) {
+      tma_load(sK + s * G::KV_BYTES + p * G::KV_PANEL, &tk, full, p * kPanel, k0, h, b);
+      tma_load(sV + s * G::KV_BYTES + p * G::KV_PANEL, &tv, full, p * kPanel, k0, h, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_once(bars), 2 * G::Q_BYTES);
+#pragma unroll
+    for (int p = 0; p < G::PANELS; ++p) {
+      tma_load(sQ + p * G::Q_PANEL, &tq, bar_once(bars), p * kPanel, q0, h, b);
+      tma_load(sO + p * G::Q_PANEL, &tdo, bar_once(bars), p * kPanel, q0, h, b);
+    }
+    if (n_tiles > 0) load(0);
+  }
+  {
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // and row0 + 8
+    const int qa0 = row0 + a.q_offset, qa1 = qa0 + 8;
+    const int wq_lo = q0 + 64 * wg + a.q_offset, wq_hi = wq_lo + 63;
+    const float sl2 = a.scale * kLog2e;
+    // rows up to sq_pad exist in the scratch (q0 + 128 <= sq_pad)
+    const long long pr = static_cast<long long>(bh) * a.sq_pad + row0;
+    const float l20 = a.lse2[pr], l21 = a.lse2[pr + 8];
+    const float d0 = a.delta[pr], d1 = a.delta[pr + 8];
+    float dq[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+    mbar_wait(bar_once(bars), 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kBwdStages;
+      const int k0 = (kt_lo + i) * BK;
+      if (threadIdx.x == 0 && i + 1 < n_tiles) load(i + 1);
+      mbar_wait(bar_full(bars, s), (i / kBwdStages) & 1);
+      const bool dead = (a.causal && k0 > wq_hi) ||
+                        (a.window > 0 && k0 + BK - 1 <= wq_lo - a.window);
+      if (dead) {
+        release(bars, s, lane);
+        continue;
+      }
+      float sc[BK / 2], dp[BK / 2];
+      uint32_t sa[BK / 16][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss<BK>(sc, sw128_desc(sQ + (kk / 4) * G::Q_PANEL + wg * 64 * 128 + (kk % 4) * 32,
+                                    16, 1024),
+                     sw128_desc(sK + s * G::KV_BYTES + (kk / 4) * G::KV_PANEL + (kk % 4) * 32,
+                                16, 1024),
+                     kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss<BK>(dp, sw128_desc(sO + (kk / 4) * G::Q_PANEL + wg * 64 * 128 + (kk % 4) * 32,
+                                    16, 1024),
+                     sw128_desc(sV + s * G::KV_BYTES + (kk / 4) * G::KV_PANEL + (kk % 4) * 32,
+                                16, 1024),
+                     kk > 0);
+      wgmma_commit();
+
+      const bool edge = k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > wq_lo) ||
+                        (a.window > 0 && k0 <= wq_hi - a.window);
+      wgmma_wait0();
+      fence_regs(sc);
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          const int qa = e < 2 ? qa0 : qa1;
+          const bool ok = !edge || (col < a.Sk && (!a.causal || col <= qa) &&
+                                    (a.window <= 0 || col > qa - a.window));
+          const float p = ok ? exp2f(fmaf(sc[4 * j + e], sl2, -(e < 2 ? l20 : l21))) : 0.f;
+          ds[e] = p * (dp[4 * j + e] - (e < 2 ? d0 : d1));
+        }
+        sa[j / 2][(j % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        sa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DH>(dq, sa[kk], sw128_desc(sK + s * G::KV_BYTES + kk * 16 * 128,
+                                            G::KV_PANEL, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dq);
+      release(bars, s, lane);
+    }
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+    __nv_bfloat16* o0 = out + static_cast<long long>(row0) * a.dq_ss + 2 * (lane % 4);
+    __nv_bfloat16* o1 = o0 + 8 * a.dq_ss;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      if (row0 < a.Sq)
+        *reinterpret_cast<uint32_t*>(o0 + 8 * j) =
+            pack_bf16(dq[4 * j] * a.scale, dq[4 * j + 1] * a.scale);
+      if (row0 + 8 < a.Sq)
+        *reinterpret_cast<uint32_t*>(o1 + 8 * j) =
+            pack_bf16(dq[4 * j + 2] * a.scale, dq[4 * j + 3] * a.scale);
+    }
+  }
+}
+
+// the pre-pass, dK/dV, then dQ, in the stream's order
+template <int DH>
+int launch_bwd(const FlashBwdArgs& a, cudaStream_t stream) {
+  using KV = DkvTile<DH>;
+  using Q = DqTile<DH>;
+  EncodeTiled enc;
+  int rc = encode_tiled(&enc);
+  if (rc) return rc;
+  flash_bwd_prep<DH><<<dim3(a.sq_pad / 8, a.B * a.H), 256, 0, stream>>>(a);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+
+  CUtensorMap tq, tk, tv, tdo;
+  if ((rc = make_map(enc, &tq, a.q, DH, a.Sq, a.H, a.B, a.q_sb, a.q_ss, a.q_sh, KV::BQ)))
+    return rc;
+  if ((rc = make_map(enc, &tdo, a.dout, DH, a.Sq, a.H, a.B, a.dout_sb, a.dout_ss, a.dout_sh,
+                     KV::BQ)))
+    return rc;
+  if ((rc = make_map(enc, &tk, a.k, DH, a.Sk, a.H, a.B, a.k_sb, a.k_ss, a.k_sh, kBwdBK)))
+    return rc;
+  if ((rc = make_map(enc, &tv, a.v, DH, a.Sk, a.H, a.B, a.v_sb, a.v_ss, a.v_sh, kBwdBK)))
+    return rc;
+  if ((rc = opt_in_smem<flash_bwd_dkdv<DH>>(KV::SMEM))) return rc;
+  flash_bwd_dkdv<DH><<<dim3((a.Sk + kBwdBK - 1) / kBwdBK, a.B * a.H), kBwdThreads, KV::SMEM,
+                       stream>>>(tq, tk, tv, tdo, a);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+
+  if ((rc = make_map(enc, &tq, a.q, DH, a.Sq, a.H, a.B, a.q_sb, a.q_ss, a.q_sh, kWgBQ)))
+    return rc;
+  if ((rc = make_map(enc, &tdo, a.dout, DH, a.Sq, a.H, a.B, a.dout_sb, a.dout_ss, a.dout_sh,
+                     kWgBQ)))
+    return rc;
+  if ((rc = make_map(enc, &tk, a.k, DH, a.Sk, a.H, a.B, a.k_sb, a.k_ss, a.k_sh, Q::BK)))
+    return rc;
+  if ((rc = make_map(enc, &tv, a.v, DH, a.Sk, a.H, a.B, a.v_sb, a.v_ss, a.v_sh, Q::BK)))
+    return rc;
+  if ((rc = opt_in_smem<flash_bwd_dq<DH>>(Q::SMEM))) return rc;
+  flash_bwd_dq<DH><<<dim3((a.Sq + kWgBQ - 1) / kWgBQ, a.B * a.H), kBwdThreads, Q::SMEM,
+                     stream>>>(tq, tk, tv, tdo, a);
   return static_cast<int>(cudaGetLastError());
 }
 }  // namespace
@@ -702,6 +1256,19 @@ int flash_attention_launch(const FlashArgs* args, void* stream) {
     case 129: return launch_bf16<64>(a, s);
     case 257: return launch_bf16<128>(a, s);
     case 513: return launch_bf16<256>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward: three launches on `stream` (pre-pass, dK/dV, dQ); returns as
+// flash_attention_launch. Dh 64 or 128, bf16, sq_pad a multiple of 128.
+int flash_attention_bwd_launch(const FlashBwdArgs* args, void* stream) {
+  const FlashBwdArgs& a = *args;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.sq_pad % kPadRows || a.sq_pad < a.Sq) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.Dh) {
+    case 64: return launch_bwd<64>(a, s);
+    case 128: return launch_bwd<128>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

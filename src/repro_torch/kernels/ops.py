@@ -22,7 +22,8 @@ from repro_torch.core.olaf_queue import (TorchQueueState, enqueue_burst_ex,
                                          expire_inactive_drains)
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,
                                               olaf_combine_plain,
@@ -268,13 +269,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Flash attention in the model's (B, S, H, Dh) layout (kv already
     expanded to H heads): the counterpart of ``repro.kernels.ops.
     flash_attention``. The kernel reads q, k and v in place through their
-    strides and writes a new (B, Sq, H, Dh) tensor: no fold copy."""
+    strides and writes a new (B, Sq, H, Dh) tensor: no fold copy. Where
+    autograd records (a gradient enabled and an operand that requires one)
+    the call goes through :class:`FlashAttention`, the kernel pair with its
+    backward (on a card bf16 with Dh 64 or 128, else it raises)."""
     dev = _device_of(q, k, v, op="flash_attention")
     fn = _route("flash_attention", dev, flash_attention_cuda,
                 flash_attention_plain)
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q (B, S, H, Dh) expected, got "
                          f"{tuple(q.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 

@@ -8,9 +8,13 @@ full-head layout (B, S, H, Dh) with KV heads expanded by a static gather
   * ``full``     — one einsum + softmax;
   * ``chunked``  — flash-style online softmax over KV blocks with causal
                    block skipping (forward only);
-  * ``pallas``   — the hand-written flash kernel through
+  * ``pallas``   — the hand-written flash kernel pair (forward and
+                   backward) through
                    :func:`repro_torch.kernels.ops.flash_attention` (the
-                   plain version on the CPU);
+                   plain versions on the CPU);
+  * ``auto``     — ``pallas`` for a CUDA bf16 q with Dh 64 or 128
+                   (:func:`flash_route`), else ``full`` up to 2048
+                   positions and ``chunked`` beyond;
   * ``decode``   — single-query attention against a KV cache.
 
 ``repro`` annotates activations with sharding constraints from logical
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import BACKWARD_HEAD_DIMS
 from repro_torch.models.module import (Draws, dense_init, fsdp_gather,
                                       is_dtensor, normal)
 
@@ -468,6 +473,15 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     return torch.einsum("bhqs,bshd->bqhd", p_attn, v_cache)
 
 
+def flash_route(device_type: str, dtype: torch.dtype, head_dim: int) -> bool:
+    """``auto``'s choice of the flash kernel pair (forward and backward):
+    a CUDA bf16 q with a head dim the backward kernel takes, with or
+    without a gradient. Everything else (the CPU, float32, Dh 256) stays on
+    the plain routes."""
+    return (device_type == "cuda" and dtype == torch.bfloat16
+            and head_dim in BACKWARD_HEAD_DIMS)
+
+
 def attention_any(q, k, v, *, causal: bool, window: int = 0,
                   impl: str = "auto", q_offset: int = 0,
                   chunk: int = 1024) -> torch.Tensor:
@@ -481,13 +495,11 @@ def attention_any(q, k, v, *, causal: bool, window: int = 0,
                 q_offset=q_offset, chunk=chunk),
             pl, (pl, pl, pl), q, k, v)
     if impl == "auto":
-        impl = "chunked" if max(q.shape[1], k.shape[1]) > 2048 else "full"
+        if flash_route(q.device.type, q.dtype, q.shape[-1]):
+            impl = "pallas"
+        else:
+            impl = "chunked" if max(q.shape[1], k.shape[1]) > 2048 else "full"
     if impl == "pallas":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise ValueError(
-                "attn_impl='pallas' has no backward (the flash kernel, as "
-                "repro's Pallas one, computes the forward only): train with "
-                "attn_impl 'auto', 'full' or 'chunked'")
         from repro_torch.kernels import ops as KOPS
         return KOPS.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset)

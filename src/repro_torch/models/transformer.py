@@ -17,9 +17,8 @@ text positions only. Four entry points:
 
   * :func:`lm_forward`     — full-sequence logits;
   * :func:`lm_loss`        — next-token cross entropy, differentiable by
-    autograd through the ``auto``/``full``/``chunked`` attention routes
-    (the flash kernel has no backward: ``"pallas"`` under a gradient
-    raises);
+    autograd through every attention route (``"pallas"``, and ``"auto"``
+    on a card in bf16, through the flash kernel pair's backward);
   * :func:`lm_prefill`     — forward + caches (inference prefill);
   * :func:`lm_decode_step` — one token against the caches, which it
     updates in place (``index_put_`` and ``copy_``; ``repro`` returns new

@@ -27,8 +27,11 @@ from repro_torch.kernels.decode_attention import (chunk_for,  # noqa: E402
                                                   decode_attention_cuda,
                                                   decode_attention_plain,
                                                   decode_plan)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    BACKWARD_HEAD_DIMS, FlashAttention, flash_attention_backward_cuda,
+    flash_attention_backward_plain, flash_attention_cuda,
+    flash_attention_plain)
+from repro_torch.models import layers  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
@@ -387,3 +390,128 @@ def test_bf16_decode_p_rounding_stays_within_tolerance_h15(S, rep):
     want = decode_attention_plain(q, kc, vc, pos)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL["bfloat16"],
                                atol=TOL["bfloat16"])
+
+
+# --------------------------------------------------------------------------
+# the backward: flash_attention_backward_plain and the autograd Function
+# --------------------------------------------------------------------------
+# (B, Sq, Sk, H, Dh, causal, window, q_offset); H None is the folded
+# (BH, S, Dh) layout
+BACKWARD = {
+    "causal": (2, 37, 37, 3, 64, True, 0, 0),
+    "non-causal": (2, 29, 29, 2, 64, False, 0, 0),
+    "window": (1, 53, 53, 2, 128, True, 11, 0),
+    "q-offset": (2, 20, 61, 2, 64, True, 0, 41),
+    "ragged-sk": (1, 24, 70, 3, 128, False, 0, 0),
+    "masked-rows": (2, 16, 16, 2, 64, True, 4, 12),  # rows 7.. see no key
+    "window-non-causal": (1, 31, 31, 2, 64, False, 6, 0),
+    "folded": (6, 45, 45, None, 128, True, 0, 0),
+    "folded-window": (4, 33, 40, None, 64, True, 9, 7),
+}
+
+
+def _backward_inputs(case, seed):
+    B, Sq, Sk, H, Dh, causal, window, q_offset = case
+    gen = torch.Generator().manual_seed(seed)
+    shape = (lambda S: (B, S, Dh)) if H is None else (lambda S: (B, S, H, Dh))
+    q, k, v = (torch.randn(shape(S), generator=gen, dtype=torch.float64)
+               .float() for S in (Sq, Sk, Sk))
+    return (q, k, v), dict(causal=causal, window=window, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("name", sorted(BACKWARD))
+def test_flash_backward_plain_and_function_match_autograd(name):
+    """In float32, ``flash_attention_backward_plain`` from the saved
+    log-sum-exp and the ``FlashAttention`` Function on the CPU give the
+    gradients ``torch.autograd`` takes through ``flash_attention_plain``:
+    the softmax backward rebuilt from P = exp(S − lse) and Σ dO∘O instead
+    of Σ dP∘P, equal up to float association (``atol = rtol = 1e-5``). A
+    row with no live key has lse −inf and gradient 0 on every side."""
+    (q, k, v), kw = _backward_inputs(BACKWARD[name], len(name))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention_plain(*leaves, **kw)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    want = torch.autograd.grad(out, leaves, g)
+
+    out2, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(out2, out.detach(), rtol=0, atol=0)
+    B, Sq = q.shape[0], q.shape[1]
+    assert lse.shape == ((B, Sq) if q.dim() == 3 else (B, q.shape[2], Sq))
+    got = flash_attention_backward_plain(q, k, v, out2, lse, g, **kw)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out3 = FlashAttention.apply(*leaves, kw["causal"], kw["window"],
+                                kw["q_offset"])
+    torch.testing.assert_close(out3, out.detach(), rtol=0, atol=0)
+    via_fn = torch.autograd.grad(out3, leaves, g)
+    for what, grads in (("plain", got), ("Function", via_fn)):
+        for n, a, b in zip("qkv", grads, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, (what, n)
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                       msg=f"{name} {what} d{n}")
+    if name == "masked-rows":  # every key lies before the window (H12)
+        dead = ~torch.isfinite(lse)
+        assert dead.any() and not dead.all()
+        assert torch.equal(got[0][:, 7:], torch.zeros_like(got[0][:, 7:]))
+
+
+def test_flash_backward_plain_rounds_p_and_ds_as_the_kernels():
+    """In bf16 the plain backward rounds P before Pᵀ·dO and dS before its two
+    products, as the kernels do (and as autograd of ``full_attention``
+    rounds dS): within two bf16 ulps (``TOL["bfloat16"]``) of the float32
+    gradients of the same bf16 inputs, and not equal to them."""
+    (q, k, v), kw = _backward_inputs(BACKWARD["causal"], 3)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)
+                    ).to(torch.bfloat16)
+    got = flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
+    f32 = [x.float() for x in (q, k, v, out, lse, g)]
+    want = flash_attention_backward_plain(*f32, **kw)
+    for n, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16, n
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a.float() / scale, b / scale,
+                                   rtol=TOL["bfloat16"], atol=TOL["bfloat16"],
+                                   msg=f"d{n}")
+    assert not all(torch.equal(a.float(), b) for a, b in zip(got, want))
+
+
+def test_flash_backward_cuda_refuses_cpu_tensors():
+    """The backward kernel's wrapper raises on the CPU (the Function takes
+    the plain backward there)."""
+    q = torch.zeros((2, 8, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention_backward_cuda(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        m = q.to("meta").requires_grad_()
+        FlashAttention.apply(m, m, m, True, 0, 0)
+
+
+@pytest.mark.parametrize("device_type,dtype,head_dim,kernels", [
+    ("cuda", torch.bfloat16, 64, True), ("cuda", torch.bfloat16, 128, True),
+    ("cuda", torch.bfloat16, 256, False), ("cuda", torch.bfloat16, 16, False),
+    ("cuda", torch.float32, 64, False), ("cuda", torch.float16, 64, False),
+    ("cpu", torch.bfloat16, 64, False), ("cpu", torch.float32, 128, False),
+    ("meta", torch.bfloat16, 64, False)])
+def test_auto_route_takes_the_kernel_pair_only_on_cuda_bf16(device_type, dtype,
+                                                            head_dim, kernels):
+    """``auto`` takes the flash kernel pair for a CUDA bf16 q with a head
+    dim the backward kernel takes, and nothing else: a pure function of
+    device type, dtype and Dh, so no card is needed to check it."""
+    assert BACKWARD_HEAD_DIMS == (64, 128)
+    assert layers.flash_route(device_type, dtype, head_dim) is kernels
+
+
+def test_auto_route_off_the_card_stays_plain():
+    """On the CPU ``auto`` keeps its plain routes, gradient or not: no
+    ``FlashAttention`` node in the graph, and the same values as ``full``."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn((1, 24, 2, 64), generator=gen).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    out = layers.attention_any(q, k, v, causal=True, impl="auto")
+    assert "FlashAttention" not in type(out.grad_fn).__name__
+    torch.testing.assert_close(out, layers.full_attention(q, k, v, causal=True),
+                               rtol=0, atol=0)
+    fl = layers.attention_any(q, k, v, causal=True, impl="pallas")
+    assert "FlashAttention" in type(fl.grad_fn).__name__

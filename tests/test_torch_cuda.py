@@ -19,8 +19,9 @@ from repro_torch.core.olaf_queue import TorchQueueState, queue_init  # noqa: E40
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,  # noqa: E402
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_backward_cuda, flash_attention_backward_plain,
+    flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.olaf_combine import (olaf_combine_cuda,  # noqa: E402
                                               olaf_combine_plain)
 from repro_torch.kernels.olaf_enqueue import (olaf_enqueue_cuda,  # noqa: E402
@@ -528,6 +529,95 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype):
         flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
     with pytest.raises(TypeError, match="not supported"):
         flash_attention_cuda(q.half(), k.half(), v.half())
+
+
+# (B, Sq, Sk, H, Dh, causal, window, q_offset); H None: the folded layout
+FLASH_BACKWARD_CASES = [(2, 256, 256, 3, 64, True, 0, 0),
+                        (1, 200, 77, 2, 64, False, 0, 0),
+                        (2, 300, 300, 2, 128, True, 0, 0),
+                        (2, 333, 333, 2, 64, True, 100, 0),
+                        (1, 100, 300, 2, 128, True, 0, 200),
+                        (2, 64, 64, 2, 64, True, 16, 60),
+                        (3, 190, 190, None, 128, False, 50, 0),
+                        (2, 700, 700, 2, 64, True, 40, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BACKWARD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda_device, case):
+    """The backward kernels against the plain backward from the kernel's own
+    output and log-sum-exp, bf16, a strided dout: every gradient within
+    1e-2 of its largest element (the two round P and dS to bf16 at sums
+    taken in other orders, so an element may round one ulp apart); the
+    same bits on a second call (no atomics); one count per call."""
+    B, Sq, Sk, H, Dh, causal, window, q_offset = case
+    gen = torch.Generator(cuda_device).manual_seed(sum(x or 0 for x in case[:5]))
+    shape = (lambda S: (B, S, Dh)) if H is None else (lambda S: (B, S, H, Dh))
+    q, k, v = (torch.randn(shape(S), generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for S in (Sq, Sk, Sk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, **kw))
+    want_out, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    torch.testing.assert_close(lse[live], want_lse[live], rtol=0, atol=1e-5)
+    g = torch.randn(out.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    if H is not None:
+        g = g.transpose(1, 2).contiguous().transpose(1, 2)
+    before = flash_attention_backward_cuda.launches
+    got = flash_attention_backward_cuda(q, k, v, out, lse, g, **kw)
+    again = flash_attention_backward_cuda(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_backward_cuda.launches == before + 2
+    want = flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
+    for n, a, b, c in zip("qkv", got, want, again):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16, n
+        assert torch.equal(a, c), f"d{n} differs between two calls"
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float() / scale, b.float() / scale,
+                                   rtol=0, atol=1e-2, msg=f"d{n} {case}")
+    with pytest.raises(ValueError, match="head dim"):
+        x = q[..., :32].contiguous()
+        flash_attention_backward_cuda(x, x, x, x, lse, x)
+
+
+@pytest.mark.cuda
+def test_training_attention_takes_the_kernel_pair(cuda_device):
+    """A bf16 model with Dh 64 under ``auto`` on the card runs the flash
+    pair: each gradient launches the forward kernel once per layer (twice
+    under remat ``full``: forward and recompute) and the backward once per
+    layer; its loss and gradient stay near the ``full`` route's on the
+    same card (bf16 rounding: the kernels keep S in float32)."""
+    from repro_torch.launch import train as launch_train
+    base = dataclasses.replace(get_config("smollm-360m").reduced(),
+                               dtype="bfloat16", d_model=256, n_heads=4,
+                               n_kv_heads=2, n_layers=3)
+    assert base.hd == 64
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, base.vocab, (2, 257), generator=gen)
+    batch = {"tokens": toks[:, :-1].to(cuda_device),
+             "labels": toks[:, 1:].to(cuda_device)}
+    params = launch_train.init_params(base, 1, cuda_device)
+    got = {}
+    for name, cfg in (("auto", base), ("auto+remat", dataclasses.replace(
+            base, remat=True, remat_policy="full")),
+            ("full", dataclasses.replace(base, attn_impl="full"))):
+        f0 = flash_attention_cuda.launches
+        b0 = flash_attention_backward_cuda.launches
+        loss, grads = launch_train.loss_and_grads(params, batch, cfg)
+        torch.cuda.synchronize()
+        got[name] = (float(loss), torch.cat([x.float().ravel() for x in grads]))
+        got[name + " launches"] = (flash_attention_cuda.launches - f0,
+                                   flash_attention_backward_cuda.launches - b0)
+    assert got["auto launches"] == (3, 3)
+    assert got["auto+remat launches"] == (6, 3)
+    assert got["full launches"] == (0, 0)
+    assert got["auto"][0] == got["auto+remat"][0]
+    assert torch.equal(got["auto"][1], got["auto+remat"][1])
+    np.testing.assert_allclose(got["auto"][0], got["full"][0], rtol=1e-2)
+    g, r = got["auto"][1], got["full"][1]
+    assert float((g - r).norm() / r.norm()) < 2e-2
 
 
 @pytest.mark.cuda

@@ -51,10 +51,12 @@ def parse_struct(source: Path, name: str):
     (olaf_robust, "olaf_robust.cu", "OlafRobustArgs"),
     (flash_attention, "flash_attention.cu", "FlashArgs"),
     (decode_attention, "decode_attention.cu", "DecodeArgs"),
+    (flash_attention, "flash_attention.cu", "FlashBwdArgs"),
 ])
 def test_args_mirror_the_cuda_struct(module, source, struct):
     want = parse_struct(CSRC / source, struct)
-    assert [(n, t) for n, t in module._Args._fields_] == want
+    args = module._BwdArgs if struct == "FlashBwdArgs" else module._Args
+    assert [(n, t) for n, t in args._fields_] == want
 
 
 def test_struct_parser_reads_pointers_and_lists(tmp_path):

@@ -367,17 +367,27 @@ def test_loss_and_gradient_match_value_and_grad(jax_params):
         params, {k: _t(v) for k, v in batch.items()}, pcfg))
 
 
-def test_pallas_attention_refuses_a_gradient(jax_params):
-    """The flash kernel has no backward: under autograd the ``pallas``
-    route raises instead of taking another implementation."""
-    _, pcfg = _cfgs()
+def test_pallas_attention_gradient_matches_repro(jax_params):
+    """Under autograd the ``pallas`` route runs the flash kernel pair
+    (``FlashAttention``: on the CPU its plain forward and backward) and its
+    loss and flat gradient equal ``repro``'s ``value_and_grad`` (which
+    trains through its dense attention) at the tolerances of the test
+    above; the forward alone, without a gradient, takes the same route."""
+    jcfg, pcfg = _cfgs()
     cfg = dataclasses.replace(pcfg, attn_impl="pallas")
+    batch = _batch(1)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_api.loss_fn(p, b, jcfg)))(jax_params, batch)
     params = params_from_jax(jax_params, device=CPU)
-    batch = {k: _t(v) for k, v in _batch(2).items()}
-    with pytest.raises(ValueError, match="no backward"):
-        train.loss_and_grads(params, batch, cfg)
-    with torch.no_grad():  # the forward alone still takes the kernel route
-        assert torch.isfinite(api.loss_fn(params, batch, cfg))
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    out = torch.empty(module.flat_size(params))
+    loss_p = train.worker_grad(params, tbatch, cfg, out)
+    np.testing.assert_allclose(float(loss_p), float(loss_j), rtol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(_jax_flatten(grads_j)),
+                               rtol=2e-5, atol=2e-5)
+    with torch.no_grad():
+        np.testing.assert_allclose(float(api.loss_fn(params, tbatch, cfg)),
+                                   float(loss_j), rtol=1e-5)
 
 
 # --------------------------------------------------------------------------
